@@ -1,0 +1,102 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each library is built from the sources under ``lsi_tpu_torch/csrc/`` at
+first use, into ``lsi_tpu_torch/_build/`` (listed in ``.gitignore``), with
+a plain C interface: no PyTorch headers, so a build takes seconds. The
+file name carries a hash of the sources and flags, so an edited source is
+rebuilt and a stale library is never loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+
+# Library name -> (sources under csrc/, {C function: argtypes}).
+LIBRARIES = {
+    "splat_fwd": (("splat_fwd.cu",), {
+        # values, coords, weights, accum, wsum, n, src_h, src_w, channels,
+        # out_h, out_w, stream
+        "lsi_splat_fwd": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
+                          _I64, _I64, _P],
+    }),
+}
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, else PATH, else the toolkit's default prefix."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    """Where ``name``'s library is (or will be) built, keyed on its sources."""
+    sources, _ = LIBRARIES[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.encode())
+        h.update((CSRC_DIR / src).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``name`` unless its library for these sources exists."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources, _ = LIBRARIES[name]
+    # Compile to a private file, then rename: a concurrent build never
+    # sees a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(str(CSRC_DIR / s) for s in sources)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name} (rc {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``name``, with every argtype declared."""
+    lib = ctypes.CDLL(str(build(name)))
+    for fn_name, argtypes in LIBRARIES[name][1].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,180 @@
+"""The port's public API vs the JAX package's: configs, the .npz model
+format both ways, predict_ldi -> render end to end, the golden fixture,
+RenderConfig handling, and that the port never imports JAX.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import lsi_tpu.api as japi
+import lsi_tpu.config as jconfig
+from lsi_tpu.geometry import transforms as jtf
+from lsi_tpu_torch import api as tapi
+from lsi_tpu_torch import config as tconfig
+from lsi_tpu_torch.geometry.ldi import render_forward
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "data", "torch_golden_toy.npz")
+H, W = 32, 64
+
+
+def toy_config(module, dtype="float32"):
+    return module.Config(model=module.ModelConfig(
+        base_filters=8, num_scales=2, compute_dtype=dtype))
+
+
+@pytest.mark.parametrize("name", ["ModelConfig", "RenderConfig", "LossConfig",
+                                  "DataConfig", "TrainConfig", "Config"])
+def test_config_dataclasses_match_jax(name):
+    """The port's copy of lsi_tpu/config.py: same fields, same defaults."""
+    mine = getattr(tconfig, name)
+    ref = getattr(jconfig, name)
+    assert ([f.name for f in dataclasses.fields(mine)]
+            == [f.name for f in dataclasses.fields(ref)])
+    assert dataclasses.asdict(mine()) == dataclasses.asdict(ref())
+
+
+def test_config_presets_match_jax():
+    assert sorted(tconfig.PRESETS) == sorted(jconfig.PRESETS)
+    for name in jconfig.PRESETS:
+        assert (dataclasses.asdict(tconfig.get_config(name))
+                == dataclasses.asdict(jconfig.get_config(name))), name
+
+
+def test_default_intrinsics_matches_jax():
+    np.testing.assert_array_equal(
+        tapi.default_intrinsics(3, H, W).numpy(),
+        np.asarray(japi.default_intrinsics(3, H, W)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_load_jax_saved_model_and_serve(tmp_path, rng, dtype):
+    """LSIModel.load reads lsi_tpu.api.LSIModel.save's file; predict_ldi
+    -> render then agrees with the JAX API. float32: 1e-5 on the LDI, 1e-3
+    on the render (the fraction snap moves a corner's weight by up to 1e-4
+    when a coordinate crosses its edge, which ~1e-5 px differences reach
+    at a few pixels). bf16: 2e-2 on the LDI, where the frameworks round to
+    bf16 at other places."""
+    jm = japi.LSIModel.init(jax.random.key(3), toy_config(jconfig, dtype),
+                            H, W)
+    path = str(tmp_path / "model.npz")
+    jm.save(path)
+    tm = tapi.LSIModel.load(path)
+    assert tm.config == toy_config(tconfig, dtype)
+
+    img = rng.uniform(size=(2, H, W, 3)).astype(np.float32)
+    pose = np.array(jtf.pose_from_euler(
+        np.array([[0.0, 0.02, 0.0], [0.01, 0.0, 0.0]], np.float32),
+        np.array([[-0.1, 0.0, 0.0], [0.05, 0.0, 0.02]], np.float32)))
+    j_ldi = jm.predict_ldi(jnp.asarray(img))
+    j_rgb = jm.render(j_ldi, jnp.asarray(pose))
+    t_ldi = tm.predict_ldi(torch.from_numpy(img))
+    t_rgb = tm.render(t_ldi, torch.from_numpy(pose))
+    ldi_tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(t_ldi.textures.numpy(),
+                               np.asarray(j_ldi.textures), atol=ldi_tol)
+    np.testing.assert_allclose(t_ldi.disparities.numpy(),
+                               np.asarray(j_ldi.disparities), atol=ldi_tol)
+    if dtype == "float32":
+        np.testing.assert_allclose(t_rgb.numpy(), np.asarray(j_rgb),
+                                   atol=1e-3)
+    assert t_rgb.shape == (2, H, W, 3) and torch.isfinite(t_rgb).all()
+
+
+def test_save_round_trips_both_ways(tmp_path):
+    """The port's save is read by the JAX package's load, params bitwise."""
+    tm = tapi.LSIModel.init(5, toy_config(tconfig), H, W)
+    path = str(tmp_path / "port.npz")
+    tm.save(path)
+    jm = japi.LSIModel.load(path)
+    assert dataclasses.asdict(jm.config) == dataclasses.asdict(tm.config)
+    back = tapi.LSIModel.load(path)
+    for k, v in tm.net.state_dict().items():
+        assert torch.equal(v, back.net.state_dict()[k]), k
+    img = np.random.default_rng(1).uniform(size=(1, H, W, 3)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        tm.predict_ldi(torch.from_numpy(img)).disparities.numpy(),
+        np.asarray(jm.predict_ldi(jnp.asarray(img)).disparities), atol=1e-5)
+
+
+def test_golden_fixture_on_cpu():
+    """The fixture chip_smoke.py holds the CUDA path to, on the CPU path
+    (same tolerances as the script)."""
+    model = tapi.LSIModel.load(GOLDEN)
+    with np.load(GOLDEN) as g:
+        gold = {k: g[k] for k in g.files if not k.startswith("params/")}
+    ldi = model.predict_ldi(torch.from_numpy(gold["image"]),
+                            torch.from_numpy(gold["intrinsics"]))
+    with torch.inference_mode():
+        out = render_forward(ldi, torch.from_numpy(gold["pose"]),
+                             zbuffer_scale=model.config.render.zbuffer_scale)
+    np.testing.assert_allclose(ldi.textures.numpy(), gold["ldi_textures"],
+                               atol=1e-4)
+    np.testing.assert_allclose(ldi.disparities.numpy(),
+                               gold["ldi_disparities"], atol=1e-4)
+    for k in ("rgb", "disparity"):
+        np.testing.assert_allclose(out[k].numpy(), gold[k], atol=1e-3)
+    np.testing.assert_allclose(out["coverage"].numpy(), gold["coverage"],
+                               rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("field,value", [("use_pallas", "on"),
+                                         ("use_pallas", "off"),
+                                         ("splat_method", "sort")])
+def test_render_rejects_tpu_only_config(field, value):
+    tm = tapi.LSIModel.init(0, toy_config(tconfig), H, W)
+    ldi = tm.predict_ldi(torch.zeros(1, H, W, 3))
+    cfg = dataclasses.replace(tconfig.RenderConfig(), **{field: value})
+    with pytest.raises(ValueError):
+        tapi.render(ldi, torch.eye(4)[None], config=cfg)
+
+
+def test_render_ignores_window_fields():
+    """pallas_max_dy and window_check have no effect: the splat is exact."""
+    tm = tapi.LSIModel.init(0, toy_config(tconfig), H, W)
+    ldi = tm.predict_ldi(torch.rand(1, H, W, 3,
+                                    generator=torch.Generator().manual_seed(0)))
+    pose = torch.from_numpy(np.array(jtf.translation_pose([[-0.2, 0.1, 0]])))
+    a = tapi.render(ldi, pose)
+    b = tapi.render(ldi, pose, config=tconfig.RenderConfig(
+        pallas_max_dy=0, window_check=False))
+    assert torch.equal(a, b)
+
+
+def test_init_checks_image_size():
+    with pytest.raises(ValueError):
+        tapi.LSIModel.init(0, toy_config(tconfig), 30, 64)
+
+
+def test_port_never_imports_jax():
+    """A fresh interpreter serves predict_ldi -> render through the port
+    with neither JAX nor any module of the JAX package loaded."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from lsi_tpu_torch import Config, LSIModel, ModelConfig
+        from lsi_tpu_torch.geometry.transforms import translation_pose
+        cfg = Config(model=ModelConfig(base_filters=8, num_scales=2))
+        model = LSIModel.init(0, cfg, 32, 64)
+        ldi = model.predict_ldi(torch.rand(1, 32, 64, 3))
+        rgb = model.render(ldi, translation_pose([[-0.1, 0.0, 0.0]]))
+        assert rgb.shape == (1, 32, 64, 3) and torch.isfinite(rgb).all()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "lsi_tpu"))
+        assert not bad, bad
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
