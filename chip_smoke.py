@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving path and its training step once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
-PyTorch built for CUDA (no JAX needed). Phases, one line each; any failure
-ends the run with a non-zero exit and no result line:
+PyTorch built for CUDA (no JAX needed). Phases, one line each (timing
+phases may print several); any failure ends the run with a non-zero exit
+and no result line:
 
 1. device  — require CUDA; card name and power limit, torch/CUDA/nvcc.
-2. build   — build the forward splat kernel (K1) from lsi_tpu_torch/csrc.
+2. build   — build every kernel library from lsi_tpu_torch/csrc, one nvcc
+             per library, all started together: splat_fwd (K1) and
+             splat_bwd (lsi_splat_vjp, lsi_gather_fwd,
+             lsi_gather_bwd_coords).
 3. kernel  — K1 against the plain index_add_ splat on the card, at the
              render's shape (N=8, Hs=512, Ws=768, C=4), with out-of-image
              and +-1e6 coordinates; run-to-run spread of the atomics.
@@ -20,14 +25,35 @@ ends the run with a non-zero exit and no result line:
              launch count must equal the number of renders.
 6. timing  — CUDA-event times after warm-up: predict, render and
              end-to-end frames/s at b8 and b16; K1 vs plain per call.
+7. vjp     — SplatFn (forward K1, backward lsi_splat_vjp = K2 + K3)
+             against the plain splat and autograd through it at the
+             training splat's shape (16, 768, 768, 4) -> (256, 768), with
+             +-1e6 and snap-zone coordinates; lsi_splat_vjp twice, bitwise
+             equal.
+8. gather  — GatherFn (lsi_gather_fwd; lsi_gather_bwd_coords and the
+             unsnapped K1 in the backward, K4) against autograd through
+             the plain gather at image (16, 256, 768, 3), coordinates
+             (16, 768, 768, 2) crossing the borders and at +-1e6.
+9. golden-train — three train steps on the card (float32, TF32 off)
+             against the JAX numbers in tests/data/torch_golden_train_toy.npz.
+10. train  — kitti_ldi3_b16 at its published widths (L=3, base_filters=32,
+             num_scales=5, bf16, photo_mode="both"), 256x768, batch 16,
+             two-plane synthetic scenes, params from seed 0: 4 steps
+             through make_train_step; every kernel launched once a step.
+11. timing — train step ms and steps/s at b16 and b8; each new kernel vs
+             its plain version (and K1 at the training shape), in turns;
+             F.grid_sample as the gather's library yardstick.
 
 The line before the last two is {"kernels": [...]}, then the card's name
 and power limit as nvidia-smi prints them, and last
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. Each kernel's ``launches`` counts both main
+paths (phase 5 and phase 10, each counted from 0).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import subprocess
 import sys
@@ -38,14 +64,20 @@ import numpy as np
 import torch
 
 from lsi_tpu_torch.api import LSIModel
-from lsi_tpu_torch.config import get_config
+from lsi_tpu_torch.config import Config, get_config
+from lsi_tpu_torch.data.pipeline import Batch, batch_stream
 from lsi_tpu_torch.geometry.ldi import render_forward
 from lsi_tpu_torch.geometry.transforms import pose_from_euler, translation_pose
-from lsi_tpu_torch.kernels import build, splat_cuda
+from lsi_tpu_torch.kernels import build, gather_cuda, splat_cuda
+from lsi_tpu_torch.models.convert import state_dict_from_jax
+from lsi_tpu_torch.ops.gather import bilinear_sample
 from lsi_tpu_torch.ops.splat import splat_bilinear
+from lsi_tpu_torch.train.trainer import (create_state, loss_and_grads,
+                                         make_lr_schedule, make_train_step)
 
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "data" / "torch_golden_toy.npz"
+GOLDEN_TRAIN = REPO / "tests" / "data" / "torch_golden_train_toy.npz"
 
 # K1 vs plain: both sum float32 atomics, in an order that changes from run
 # to run, so they agree to float32 rounding of the sums, not bitwise.
@@ -59,11 +91,39 @@ SPLAT_ATOL_OF_MAX = 1e-5  # atol = this * max|reference|
 GOLDEN_LDI_ATOL = 1e-4
 GOLDEN_RENDER_ATOL = 1e-3
 GOLDEN_COVERAGE_RTOL = 1e-3
+# K2/K3 and K4 vs autograd through the plain versions: the same float32
+# products summed over 4 corners in another order, and differences of
+# corner terms for the coordinates: rtol 1e-4, atol 1e-5 * max|reference|.
+# d_image of the gather sums K1's atomics: the same.
+VJP_RTOL = 1e-4
+VJP_ATOL_OF_MAX = 1e-5
+# Golden train (tests/test_torch_train.py gives the reasons): the splat
+# and gather gradients jump where a coordinate crosses a pixel or
+# snap-zone edge, so JAX's own jit and eager gradients differ by up to
+# 2.5e-4, and Adam turns that into steps of up to lr. Loss parts: tight
+# while the params are equal (steps 1-2); step-1 gradients within 2e-4 of
+# the largest (sound runs read 2e-5 to 5e-5 of it, planted faults 4e-2 and
+# more: scripts/train_parity_spread.py); params after 3 steps within the
+# step sizes' sum, and within 20% of the average movement on average,
+# movements' cosine >= 0.95.
+# Loss parts get 1e-4 here (TF32 off, cuDNN vs XLA CPU convs).
+TRAIN_LOSS_RTOL = (1e-4, 1e-4, 2e-3)
+TRAIN_NORM_RTOL = (2e-3, 2e-3, 5e-2)
+TRAIN_GRAD_ATOL_OF_MAX = 2e-4
+TRAIN_PARAM_MEAN = 0.2
+TRAIN_PARAM_COS = 0.95
 
 SPLAT_SHAPE = (8, 512, 768, 4)  # N, L*H, W, C of the flagship render
 OUT_HW = (256, 768)
 REQUESTS = 4
 BATCH = 8
+TRAIN_SPLAT_SHAPE = (16, 768, 768, 4)  # kitti_ldi3_b16: N, L*H, W, C
+GATHER_IMAGE = (16, 256, 768, 3)
+TRAIN_STEPS = 4
+
+# H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def log(phase: str, msg: str) -> None:
@@ -94,18 +154,59 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def splat_inputs(rng: np.random.Generator, dev: torch.device):
+def in_turns(fns, iters: int):
+    """Mean ms of each of two functions timed plain, kernel, kernel, plain
+    (``fns`` = {"plain": f, "kernel": g}), and the four readings."""
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        times[which].append(cuda_ms(fns[which], iters=iters))
+    return ({k: float(np.mean(v)) for k, v in times.items()}, times)
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    float32 operations over the float32 peak."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / FP32_FLOP_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def corners_in_image(coords: torch.Tensor, h: int, w: int) -> int:
+    """How many of the coordinates' 4 bilinear corners lie in an h x w
+    image (the data-dependent part of the kernels' work)."""
+    x0 = torch.floor(coords[..., 0])
+    y0 = torch.floor(coords[..., 1])
+    total = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            total += int(((x0 + dx >= 0) & (x0 + dx <= w - 1)
+                          & (y0 + dy >= 0) & (y0 + dy <= h - 1)).sum())
+    return total
+
+
+def splat_inputs(rng: np.random.Generator, dev: torch.device,
+                 shape=SPLAT_SHAPE, snap_zone: bool = False):
     """Render-like splat inputs: each folded row lands near its base row,
     shifted up to +-40 px across and +-3 rows; 1% of pixels far outside
     (+-1e6, as where the projection clamps its denominator) and some just
-    off the image edges."""
-    n, hs, ws, c = SPLAT_SHAPE
+    off the image edges; with ``snap_zone``, 2% of x fractions inside the
+    snap zones (within MIN_FRACTION of an integer)."""
+    n, hs, ws, c = shape
     ho, wo = OUT_HW
     values = rng.uniform(size=(n, hs, ws, c)).astype(np.float32)
     x = (np.arange(ws, dtype=np.float32)[None, None, :]
          + rng.uniform(-40, 40, (n, hs, ws)).astype(np.float32))
     y = ((np.arange(hs, dtype=np.float32) % ho)[None, :, None]
          + rng.uniform(-3, 3, (n, hs, ws)).astype(np.float32))
+    if snap_zone:
+        near = rng.uniform(size=(n, hs, ws)) < 0.02
+        x[near] = np.round(x[near]) + rng.choice(
+            np.array([-5e-5, 5e-5], np.float32), int(near.sum()))
     far = rng.uniform(size=(n, hs, ws)) < 0.01
     x[far] = 1e6
     y[rng.uniform(size=(n, hs, ws)) < 0.01] = -1e6
@@ -113,6 +214,24 @@ def splat_inputs(rng: np.random.Generator, dev: torch.device):
     weights = rng.uniform(0.0, 1.0, (n, hs, ws, 1)).astype(np.float32)
     return tuple(torch.from_numpy(a).to(dev)
                  for a in (values, coords, weights))
+
+
+def gather_inputs(rng: np.random.Generator, dev: torch.device):
+    """The inverse-warp gather's shapes: a (16, 256, 768, 3) target and
+    (16, 768, 768, 2) folded-layer coordinates near each row's base row,
+    +-40 px across (so the left and right borders are crossed) and +-3
+    rows (the top and bottom ones), 1% at +-1e6."""
+    n, hi, wi, c = GATHER_IMAGE
+    hs, ws = 3 * hi, wi
+    image = rng.uniform(size=(n, hi, wi, c)).astype(np.float32)
+    x = (np.arange(ws, dtype=np.float32)[None, None, :]
+         + rng.uniform(-40, 40, (n, hs, ws)).astype(np.float32))
+    y = ((np.arange(hs, dtype=np.float32) % hi)[None, :, None]
+         + rng.uniform(-3, 3, (n, hs, ws)).astype(np.float32))
+    x[rng.uniform(size=(n, hs, ws)) < 0.01] = -1e6
+    y[rng.uniform(size=(n, hs, ws)) < 0.01] = 1e6
+    coords = np.stack([x, y], -1)
+    return tuple(torch.from_numpy(a).to(dev) for a in (image, coords))
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
@@ -127,6 +246,148 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
     return err.max().item()
 
 
+def check_vjp(name: str, got, ref) -> float:
+    """Each gradient against the plain one: VJP_RTOL, VJP_ATOL_OF_MAX."""
+    err = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        atol = VJP_ATOL_OF_MAX * r.abs().max().item()
+        err = max(err, check_close(f"{name}[{i}]", g, r, VJP_RTOL, atol))
+    return err
+
+
+def grads_of(fn, inputs, cotangents):
+    """Outputs of ``fn`` on fresh leaves of ``inputs`` that require grad,
+    and their VJP with ``cotangents``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    grads = torch.autograd.grad(outs, leaves, cotangents)
+    return [o.detach() for o in outs], grads
+
+
+def with_tf32_off(fn):
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return fn()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+KERNELS = {"splat_fwd": splat_cuda.splat, "splat_vjp": splat_cuda.splat_vjp,
+           "gather_fwd": gather_cuda.gather_fwd,
+           "gather_bwd_coords": gather_cuda.gather_bwd_coords}
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def counts() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def golden_serve(dev) -> dict:
+    with np.load(GOLDEN) as g:
+        golden = {k: g[k] for k in g.files if not k.startswith("params/")}
+    model = LSIModel.load(str(GOLDEN), device=dev)
+    if model.config.model.compute_dtype != "float32":
+        fail("golden model must compute in float32")
+
+    def on_dev(name):
+        return torch.from_numpy(golden[name]).to(dev)
+
+    with torch.inference_mode():
+        ldi = model.predict_ldi(on_dev("image"), on_dev("intrinsics"))
+        out = render_forward(ldi, on_dev("pose"),
+                             zbuffer_scale=model.config.render.zbuffer_scale)
+    return {
+        "textures": check_close("golden textures", ldi.textures,
+                                on_dev("ldi_textures"), 0.0, GOLDEN_LDI_ATOL),
+        "disparities": check_close("golden disparities", ldi.disparities,
+                                   on_dev("ldi_disparities"), 0.0,
+                                   GOLDEN_LDI_ATOL),
+        "rgb": check_close("golden rgb", out["rgb"], on_dev("rgb"), 0.0,
+                           GOLDEN_RENDER_ATOL),
+        "disparity": check_close("golden disparity", out["disparity"],
+                                 on_dev("disparity"), 0.0,
+                                 GOLDEN_RENDER_ATOL),
+        "coverage": check_close("golden coverage", out["coverage"],
+                                on_dev("coverage"), GOLDEN_COVERAGE_RTOL,
+                                1e-5),
+    }
+
+
+def golden_train(dev) -> str:
+    """Three steps of the toy kitti_ldi3_b16 on the card against the JAX
+    numbers; returns the summary for the log line."""
+    with np.load(GOLDEN_TRAIN) as g:
+        golden = {k: g[k] for k in g.files}
+
+    def section(prefix):
+        return {k[len(prefix):]: v for k, v in golden.items()
+                if k.startswith(prefix)}
+
+    cfg = Config.from_dict(json.loads(bytes(golden["__config__"]).decode()))
+    start = state_dict_from_jax(section("params/"), cfg.model)
+    state = create_state(cfg, device=dev)
+    state.net.load_state_dict(start)
+    start = {k: v.to(dev) for k, v in start.items()}
+    batches = [Batch(**{k: torch.from_numpy(v).to(dev)
+                        for k, v in section(f"batch{i}/").items()})
+               for i in range(3)]
+
+    grads = loss_and_grads(state, batches[0], cfg)[1]
+    want = {k: v.to(dev)
+            for k, v in state_dict_from_jax(section("step1_grads/"),
+                                            cfg.model).items()}
+    g_max = max(v.abs().max().item() for v in want.values())
+    g_err = max(check_close(f"golden-train grad {k}", grads[k], want[k], 0.0,
+                            TRAIN_GRAD_ATOL_OF_MAX * g_max) for k in want)
+
+    step = make_train_step(cfg)
+    metrics_want = section("metrics/")
+    worst = {}
+    for i, batch in enumerate(batches):
+        state, metrics = step(state, batch)
+        for k, v in metrics_want.items():
+            rtol = (TRAIN_NORM_RTOL if k == "grad_norm" else
+                    TRAIN_LOSS_RTOL)[i]
+            got, ref = float(metrics[k]), float(v[i])
+            if not abs(got - ref) <= 1e-7 + rtol * abs(ref):
+                fail(f"golden-train {k} at step {i + 1}: {got} vs JAX {ref} "
+                     f"(rtol {rtol})")
+            worst[k] = max(worst.get(k, 0.0), abs(got - ref) / max(abs(ref),
+                                                                  1e-12))
+    want = {k: v.to(dev)
+            for k, v in state_dict_from_jax(section("step3_params/"),
+                                            cfg.model).items()}
+    got = state.net.state_dict()
+    names = sorted(want)
+    diff = torch.cat([(got[k] - want[k]).flatten() for k in names])
+    moved = torch.cat([(want[k] - start[k]).flatten() for k in names])
+    mine = torch.cat([(got[k] - start[k]).flatten() for k in names])
+    lr = make_lr_schedule(cfg)
+    lr_sum = sum(lr(c) for c in range(3))
+    mean_ratio = (diff.abs().mean() / moved.abs().mean()).item()
+    cosine = ((moved @ mine) / (moved.norm() * mine.norm())).item()
+    if diff.abs().max().item() > 1.5 * lr_sum:
+        fail(f"golden-train params: max diff {diff.abs().max().item():.3e} "
+             f"beyond 1.5 x the step sizes' sum {lr_sum:.3e}")
+    if mean_ratio > TRAIN_PARAM_MEAN or cosine < TRAIN_PARAM_COS:
+        fail(f"golden-train params: mean diff / mean move {mean_ratio:.3f}, "
+             f"cosine {cosine:.4f}")
+    return (f"step-1 grads max abs err {g_err:.3e} (max |grad| {g_max:.3e}); "
+            "max rel err over 3 steps "
+            + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
+            + f"; params after 3 steps: max diff "
+            f"{diff.abs().max().item():.3e}, mean diff / mean move "
+            f"{mean_ratio:.4f}, cosine {cosine:.5f}")
+
+
 def main() -> None:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -139,14 +400,18 @@ def main() -> None:
     log("device", f"{smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {nvcc_version}")
 
-    # 2. Build.
+    # 2. Build: one nvcc per library, all started together.
     t0 = time.perf_counter()
-    build.load("splat_fwd")
-    log("build", f"splat_fwd built and loaded in "
+    with concurrent.futures.ThreadPoolExecutor(len(build.LIBRARIES)) as pool:
+        paths = dict(zip(build.LIBRARIES,
+                         pool.map(build.build, build.LIBRARIES)))
+    for name in build.LIBRARIES:
+        build.load(name)
+    log("build", f"{', '.join(build.LIBRARIES)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s -> "
-        f"{build.library_path('splat_fwd').relative_to(REPO)}")
+        + ", ".join(str(p.relative_to(REPO)) for p in paths.values()))
 
-    # 3. Kernel vs plain at the path's shape.
+    # 3. K1 vs plain at the serving path's shape.
     values, coords, weights = splat_inputs(np.random.default_rng(0), dev)
     acc_ref, ws_ref = splat_bilinear(values, coords, weights, OUT_HW)
     acc_1, ws_1 = splat_cuda.splat(values, coords, weights, OUT_HW)
@@ -162,46 +427,15 @@ def main() -> None:
         f"{max_err:.3e} (max|ref| accum {acc_ref.abs().max().item():.3f}, "
         f"rtol {SPLAT_RTOL}, atol {SPLAT_ATOL_OF_MAX}*max|ref|); "
         f"run-to-run max abs diff {spread:.3e}")
+    del acc_ref, ws_ref, acc_1, ws_1, acc_2, ws_2
 
     # 4. Golden check against the JAX outputs, float32 with TF32 off.
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    with np.load(GOLDEN) as g:
-        golden = {k: g[k] for k in g.files if not k.startswith("params/")}
-    model = LSIModel.load(str(GOLDEN), device=dev)
-    if model.config.model.compute_dtype != "float32":
-        fail("golden model must compute in float32")
-
-    def on_dev(name):
-        return torch.from_numpy(golden[name]).to(dev)
-
-    with torch.inference_mode():
-        ldi = model.predict_ldi(on_dev("image"), on_dev("intrinsics"))
-        out = render_forward(ldi, on_dev("pose"),
-                             zbuffer_scale=model.config.render.zbuffer_scale)
-    errs = {
-        "textures": check_close("golden textures", ldi.textures,
-                                on_dev("ldi_textures"), 0.0, GOLDEN_LDI_ATOL),
-        "disparities": check_close("golden disparities", ldi.disparities,
-                                   on_dev("ldi_disparities"), 0.0,
-                                   GOLDEN_LDI_ATOL),
-        "rgb": check_close("golden rgb", out["rgb"], on_dev("rgb"), 0.0,
-                           GOLDEN_RENDER_ATOL),
-        "disparity": check_close("golden disparity", out["disparity"],
-                                 on_dev("disparity"), 0.0,
-                                 GOLDEN_RENDER_ATOL),
-        "coverage": check_close("golden coverage", out["coverage"],
-                                on_dev("coverage"), GOLDEN_COVERAGE_RTOL,
-                                1e-5),
-    }
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs = with_tf32_off(lambda: golden_serve(dev))
     log("golden", "port on CUDA vs JAX (CPU) at 2x32x64, float32: max abs "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f" (LDI atol {GOLDEN_LDI_ATOL}, render atol {GOLDEN_RENDER_ATOL})")
 
-    # 5. The slice at full width.
+    # 5. The serving path at full width.
     config = get_config("kitti_ldi2")
     h, w = config.data.height, config.data.width
     model = LSIModel.init(0, config, h, w, device=dev)
@@ -215,15 +449,16 @@ def main() -> None:
                              [[-0.1, 0.0, 0.0]] * BATCH).to(dev)]
     torch.cuda.synchronize()
 
-    splat_cuda.splat.launches = 0
+    reset_counts()
     results = []
     for i, image in enumerate(images):
         ldi = model.predict_ldi(image)
         results.append((ldi, poses[i % 2], model.render(ldi, poses[i % 2])))
     torch.cuda.synchronize()
-    launches = splat_cuda.splat.launches
-    if launches != REQUESTS:
-        fail(f"K1 launched {launches} times for {REQUESTS} renders")
+    serve_counts = counts()
+    if serve_counts["splat_fwd"] != REQUESTS:
+        fail(f"K1 launched {serve_counts['splat_fwd']} times for {REQUESTS} "
+             "renders")
 
     cfg_m = config.model
     covered = []
@@ -248,10 +483,11 @@ def main() -> None:
         fail(f"coverage > 0 on only {min(covered):.1%} of pixels")
     log("slice", f"kitti_ldi2 ({n_params} params, {cfg_m.compute_dtype}) "
         f"at {h}x{w}: {REQUESTS} requests of batch {BATCH} served; K1 "
-        f"launches {launches} = renders {REQUESTS}; covered pixels "
-        + ", ".join(f"{c:.1%}" for c in covered))
+        f"launches {serve_counts['splat_fwd']} = renders {REQUESTS}; covered "
+        "pixels " + ", ".join(f"{c:.1%}" for c in covered))
+    del results
 
-    # 6. Timing.
+    # 6. Serving timing.
     for b in (8, 16):
         image = torch.from_numpy(rng.uniform(size=(b, h, w, 3))
                                  .astype(np.float32)).to(dev)
@@ -265,28 +501,256 @@ def main() -> None:
             f"({1e3 * b / t_pred:.1f} frames/s), render {t_rend:.3f} ms "
             f"({1e3 * b / t_rend:.1f} frames/s), end-to-end {t_e2e:.3f} ms "
             f"({1e3 * b / t_e2e:.1f} frames/s)")
+    del model
     # K1 and plain in turns (plain, K1, K1, plain), at the b8 render shape.
-    times = {"plain": [], "k1": []}
-    for which in ("plain", "k1", "k1", "plain"):
-        fn = splat_bilinear if which == "plain" else splat_cuda.splat
-        times[which].append(cuda_ms(
-            lambda: fn(values, coords, weights, OUT_HW), iters=50))
-    k1_ms = float(np.mean(times["k1"]))
-    plain_ms = float(np.mean(times["plain"]))
+    k1, k1_times = in_turns({
+        "plain": lambda: splat_bilinear(values, coords, weights, OUT_HW),
+        "kernel": lambda: splat_cuda.splat(values, coords, weights, OUT_HW)},
+        iters=50)
+    k1_bound = bound(nbytes(values, coords, weights) + 4 * np.prod(
+        (SPLAT_SHAPE[0],) + OUT_HW) * (SPLAT_SHAPE[3] + 1),
+        (SPLAT_SHAPE[3] + 1) * 2 * corners_in_image(coords, *OUT_HW))
     log("timing", f"{smi} | splat at {SPLAT_SHAPE} -> {OUT_HW}: K1 "
-        f"{1e3 * k1_ms:.1f} us/call {times['k1']}, plain index_add_ "
-        f"{1e3 * plain_ms:.1f} us/call {times['plain']}")
+        f"{1e3 * k1['kernel']:.1f} us/call {k1_times['kernel']}, plain "
+        f"index_add_ {1e3 * k1['plain']:.1f} us/call {k1_times['plain']}; "
+        f"bound {1e3 * k1_bound[0]:.1f} us ({k1_bound[1]})")
+    del values, coords, weights
 
-    print(json.dumps({"kernels": [{
-        "name": "splat_fwd",
-        "route": "cuda",
+    # 7. SplatFn, forward (K1) and VJP (K2 + K3), at the training splat's
+    # shape.
+    rng = np.random.default_rng(2)
+    s_in = splat_inputs(rng, dev, TRAIN_SPLAT_SHAPE, snap_zone=True)
+    n, hs, ws, c = TRAIN_SPLAT_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    s_cot = (torch.randn((n,) + OUT_HW + (c,), generator=gen, device=dev),
+             torch.randn((n,) + OUT_HW + (1,), generator=gen, device=dev))
+    out_k, vjp_k = grads_of(lambda *a: splat_cuda.SplatFn.apply(*a, OUT_HW),
+                            s_in, s_cot)
+    out_p, vjp_p = grads_of(lambda *a: splat_bilinear(*a, OUT_HW), s_in,
+                            s_cot)
+    torch.cuda.synchronize()
+    # K1 at the training shape: SplatFn's forward against the plain splat.
+    train_fwd_err = 0.0
+    for name, got, ref in zip(("accum", "wsum"), out_k, out_p):
+        atol = SPLAT_ATOL_OF_MAX * ref.abs().max().item()
+        train_fwd_err = max(train_fwd_err, check_close(
+            f"SplatFn {name} at the training shape", got, ref, SPLAT_RTOL,
+            atol))
+    max_err = max(max_err, train_fwd_err)
+    vjp_err = check_vjp("splat VJP (d_values, d_coords, d_weights)", vjp_k,
+                        vjp_p)
+    frac = s_in[1][..., 0] - torch.floor(s_in[1][..., 0])
+    snapped = ((frac < 1e-4) | (frac > 1 - 1e-4)) & (s_in[1][..., 0].abs()
+                                                      < 1e5)
+    if vjp_k[1][..., 0][snapped].abs().max().item() != 0.0:
+        fail("splat VJP: a coordinate gradient in a snap zone is not 0")
+    first = splat_cuda.splat_vjp(*s_in, *s_cot, OUT_HW)
+    second = splat_cuda.splat_vjp(*s_in, *s_cot, OUT_HW)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail("lsi_splat_vjp is not bitwise repeatable")
+    del out_k, out_p, vjp_k, vjp_p, first, second
+    log("vjp", f"SplatFn forward (K1) vs the plain splat at "
+        f"{TRAIN_SPLAT_SHAPE} -> {OUT_HW}: max abs err {train_fwd_err:.3e} "
+        f"(rtol {SPLAT_RTOL}, atol {SPLAT_ATOL_OF_MAX}*max|ref|); SplatFn "
+        f"backward (lsi_splat_vjp) vs autograd through the plain splat: max "
+        f"abs err {vjp_err:.3e} (rtol {VJP_RTOL}, atol "
+        f"{VJP_ATOL_OF_MAX}*max|ref|); "
+        f"{int(snapped.sum())} snap-zone x fractions with zero gradient; two "
+        "launches bitwise equal")
+
+    # 8. The gather (K4) at the inverse warp's shapes.
+    g_in = gather_inputs(rng, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g_cot = (torch.randn(g_in[1].shape[:-1] + (3,), generator=gen,
+                         device=dev),
+             torch.randn(g_in[1].shape[:-1] + (1,), generator=gen,
+                         device=dev))
+    out_k, grad_k = grads_of(gather_cuda.GatherFn.apply, g_in, g_cot)
+    out_p, grad_p = grads_of(bilinear_sample, g_in, g_cot)
+    torch.cuda.synchronize()
+    fwd_err = max(check_close("gather sampled", out_k[0], out_p[0], 1e-5,
+                              1e-6),
+                  check_close("gather valid", out_k[1], out_p[1], 1e-5, 1e-6))
+    bwd_err = check_vjp("gather VJP (d_image, d_coords)", grad_k, grad_p)
+    only_valid = gather_cuda.gather_bwd_coords(
+        g_in[0], g_in[1], torch.zeros_like(g_cot[0]), g_cot[1])
+    valid_part = only_valid.abs().max().item()
+    if valid_part == 0.0:
+        fail("gather: the valid mass carries no coordinate gradient")
+    partial = ((out_p[1] > 0) & (out_p[1] < 1)).float().mean().item()
+    del out_k, grad_k, out_p, grad_p, only_valid
+    log("gather", f"GatherFn vs autograd through the plain gather at image "
+        f"{GATHER_IMAGE}, coords {tuple(g_in[1].shape)}: sampled/valid max "
+        f"abs err {fwd_err:.3e}, d_image/d_coords {bwd_err:.3e}; "
+        f"{partial:.2%} of samples partly off-image, |d_coords| from the "
+        f"valid cotangent alone up to {valid_part:.3f}")
+
+    # 9. Golden train: the port on CUDA against JAX's numbers.
+    summary = with_tf32_off(lambda: golden_train(dev))
+    log("golden-train", "toy kitti_ldi3_b16 (2x32x64, float32, TF32 off) "
+        "on CUDA vs JAX (CPU): " + summary)
+
+    # 10. The training step at full width.
+    config = get_config("kitti_ldi3_b16")
+    config = dataclasses.replace(config, data=dataclasses.replace(
+        config.data, dataset="synthetic"))
+    b, h, w = config.data.batch_size, config.data.height, config.data.width
+    state = create_state(config, seed=0, device=dev)
+    n_params = sum(p.numel() for p in state.net.parameters())
+    step = make_train_step(config)
+    stream = batch_stream(config.data, seed=0, device=dev)
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+
+    reset_counts()
+    per_step, history = [], []
+    for i, batch in enumerate(batches):
+        before = counts()
+        params = {k: p.detach().clone()
+                  for k, p in state.net.named_parameters()}
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        per_step.append({k: v - before[k] for k, v in counts().items()})
+        history.append({k: float(v) for k, v in metrics.items()})
+        if not all(np.isfinite(v) for v in history[-1].values()):
+            fail(f"train step {i + 1}: non-finite metrics {history[-1]}")
+        same = all(torch.equal(p, params[k])
+                   for k, p in state.net.named_parameters())
+        if i == 0 and not same:
+            fail("train step 1 (lr = 0) changed the parameters")
+        if i == 1 and same:
+            fail("train step 2 left the parameters unchanged")
+    train_counts = counts()
+    want = {name: 1 for name in KERNELS}
+    if any(c != want for c in per_step):
+        fail(f"launches per train step {per_step}, expected {want}")
+    log("train", f"kitti_ldi3_b16 ({n_params} params, "
+        f"{config.model.compute_dtype}, photo_mode="
+        f"{config.loss.photo_mode}) at {b}x{h}x{w}, synthetic two-plane "
+        f"scenes: {TRAIN_STEPS} steps; launches per step {per_step[0]}; "
+        "params bitwise kept at step 1 (lr 0), moved at step 2; metrics "
+        + "; ".join(", ".join(f"{k} {v:.5f}" for k, v in sorted(m.items()))
+                    for m in history))
+
+    # 11. Training timing.
+    step_ms = {}
+    for bb in (16, 8):
+        batch = Batch(**{f.name: getattr(batches[0], f.name)[:bb]
+                         for f in dataclasses.fields(Batch)})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms[bb] = cuda_ms(lambda: step(state, batch), iters=10)
+        log("timing", f"{smi} | train step kitti_ldi3_b16 b{bb} {h}x{w}: "
+            f"{step_ms[bb]:.3f} ms ({1e3 / step_ms[bb]:.3f} steps/s, "
+            f"{1e3 * bb / step_ms[bb]:.1f} examples/s); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, batches, stream
+
+    kernels = {}
+    splat_in_corners = corners_in_image(s_in[1], *OUT_HW)
+    out_px = n * OUT_HW[0] * OUT_HW[1]
+    # K1 at the training splat's shape.
+    t, readings = in_turns({
+        "plain": lambda: splat_bilinear(*s_in, OUT_HW),
+        "kernel": lambda: splat_cuda.splat(*s_in, OUT_HW)}, iters=20)
+    bnd = bound(nbytes(*s_in) + 4 * out_px * (c + 1),
+                2 * (c + 1) * splat_in_corners)
+    log("timing", f"{smi} | K1 splat at {TRAIN_SPLAT_SHAPE} -> {OUT_HW}: "
+        f"{1e3 * t['kernel']:.1f} us/call {readings['kernel']}, plain "
+        f"{1e3 * t['plain']:.1f} us/call; bound {1e3 * bnd[0]:.1f} us "
+        f"({bnd[1]})")
+    # lsi_splat_vjp.
+    t, readings = in_turns({
+        "plain": lambda: splat_cuda._plain_vjp(*s_in, *s_cot, OUT_HW,
+                                               (True, True, True)),
+        "kernel": lambda: splat_cuda.splat_vjp(*s_in, *s_cot, OUT_HW)},
+        iters=10)
+    bnd = bound(2 * nbytes(*s_in) + nbytes(*s_cot),
+                20 * n * hs * ws + (2 * c + 2) * 2 * splat_in_corners
+                + (2 * c + 12) * n * hs * ws)
+    kernels["splat_vjp"] = dict(
+        replaces="lsi_tpu/kernels/splat_pallas.py:335", t=t, bound=bnd,
+        err=vjp_err, library=None)
+    log("timing", f"{smi} | lsi_splat_vjp at {TRAIN_SPLAT_SHAPE} -> "
+        f"{OUT_HW}: {1e3 * t['kernel']:.1f} us/call {readings['kernel']}, "
+        f"plain (autograd through splat_bilinear) {1e3 * t['plain']:.1f} "
+        f"us/call {readings['plain']}; bound {1e3 * bnd[0]:.1f} us "
+        f"({bnd[1]})")
+    del s_in, s_cot
+
+    # The gather and its yardstick, F.grid_sample (bilinear, zeros,
+    # align_corners=True) on [image, 1], which gives sampled and valid.
+    image, gcoords = g_in
+    ni, hi, wi, ci = image.shape
+    g_corners = corners_in_image(gcoords, hi, wi)
+    sampled, valid = gather_cuda.gather_fwd(image, gcoords)
+    t, readings = in_turns({
+        "plain": lambda: bilinear_sample(image, gcoords),
+        "kernel": lambda: gather_cuda.gather_fwd(image, gcoords)}, iters=20)
+    img4 = torch.cat([image, torch.ones_like(image[..., :1])],
+                     -1).permute(0, 3, 1, 2).contiguous()
+    scale = torch.tensor([2.0 / (wi - 1), 2.0 / (hi - 1)], device=dev)
+    grid = (gcoords * scale - 1.0).contiguous()
+    gs = torch.nn.functional.grid_sample
+    gs_kw = dict(mode="bilinear", padding_mode="zeros", align_corners=True)
+    lib_fwd = cuda_ms(lambda: gs(img4, grid, **gs_kw), iters=20)
+    kernels["gather_fwd"] = dict(
+        replaces="lsi_tpu/kernels/gather_pallas.py:75", t=t,
+        bound=bound(nbytes(image, gcoords, sampled, valid),
+                    20 * gcoords[..., 0].numel() + 2 * (ci + 1) * g_corners),
+        err=fwd_err, library=lib_fwd)
+    log("timing", f"{smi} | lsi_gather_fwd at image {tuple(image.shape)}, "
+        f"coords {tuple(gcoords.shape)}: {1e3 * t['kernel']:.1f} us/call "
+        f"{readings['kernel']}, plain bilinear_sample {1e3 * t['plain']:.1f} "
+        f"us/call; grid_sample forward {1e3 * lib_fwd:.1f} us; bound "
+        f"{1e3 * kernels['gather_fwd']['bound'][0]:.1f} us")
+    t, readings = in_turns({
+        "plain": lambda: gather_cuda._plain_coords_vjp(image, gcoords,
+                                                       *g_cot),
+        "kernel": lambda: gather_cuda.gather_bwd_coords(image, gcoords,
+                                                        *g_cot)}, iters=20)
+    grid_r = grid.clone().requires_grad_()
+    gs_out = gs(img4, grid_r, **gs_kw)
+    gs_cot = torch.randn_like(gs_out)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(gs_out, grid_r, gs_cot,
+                                                  retain_graph=True),
+                      iters=20)
+    grid_r2 = grid.clone().requires_grad_()
+    lib_both = cuda_ms(lambda: torch.autograd.grad(
+        gs(img4, grid_r2, **gs_kw), grid_r2, gs_cot), iters=20)
+    kernels["gather_bwd_coords"] = dict(
+        replaces="lsi_tpu/kernels/gather_pallas.py:104", t=t,
+        bound=bound(nbytes(image, gcoords, *g_cot) + nbytes(gcoords),
+                    20 * gcoords[..., 0].numel()
+                    + (2 * ci + 2) * g_corners),
+        err=bwd_err, library=lib_bwd)
+    log("timing", f"{smi} | lsi_gather_bwd_coords at the same shapes: "
+        f"{1e3 * t['kernel']:.1f} us/call {readings['kernel']}, plain "
+        f"(autograd through bilinear_sample) {1e3 * t['plain']:.1f} "
+        f"us/call; grid_sample backward "
+        f"(grid only) {1e3 * lib_bwd:.1f} us, forward+backward "
+        f"{1e3 * lib_both:.1f} us; bound "
+        f"{1e3 * kernels['gather_bwd_coords']['bound'][0]:.1f} us")
+
+    total = {name: serve_counts[name] + train_counts[name]
+             for name in KERNELS}
+    entries = [{
+        "name": "splat_fwd", "route": "cuda",
         "source": "lsi_tpu_torch/csrc/splat_fwd.cu",
         "replaces": "lsi_tpu/kernels/splat_pallas.py:141",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "launches": total["splat_fwd"], "max_abs_err": max_err,
+        "ms": k1["kernel"], "plain_ms": k1["plain"],
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+        "library_ms": None}]
+    for name, k in kernels.items():
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "lsi_tpu_torch/csrc/splat_bwd.cu",
+            "replaces": k["replaces"], "launches": total[name],
+            "max_abs_err": k["err"], "ms": k["t"]["kernel"],
+            "plain_ms": k["t"]["plain"], "bound_ms": k["bound"][0],
+            "bound_by": k["bound"][1], "library_ms": k["library"]})
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -294,4 +758,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

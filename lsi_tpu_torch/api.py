@@ -94,10 +94,11 @@ class LSIModel:
     @classmethod
     def init(cls, seed: int, config: Optional[Config] = None,
              height: Optional[int] = None, width: Optional[int] = None,
-             device="cpu") -> "LSIModel":
+             device="cuda") -> "LSIModel":
         """Random weights drawn from ``seed`` (on the CPU, so every device
-        gets the same ones). ``height``/``width`` (default: the config's
-        data size) are checked against the UNet's downsampling."""
+        gets the same ones), moved to ``device`` (the card unless the
+        caller asks for the CPU). ``height``/``width`` (default: the
+        config's data size) are checked against the UNet's downsampling."""
         config = config or Config()
         h = height or config.data.height
         w = width or config.data.width
@@ -126,9 +127,10 @@ class LSIModel:
         np.savez(path, **out)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "LSIModel":
+    def load(cls, path: str, device="cuda") -> "LSIModel":
         """Read a file written by :meth:`save` or by
-        ``lsi_tpu.api.LSIModel.save``."""
+        ``lsi_tpu.api.LSIModel.save`` onto ``device`` (the card unless the
+        caller asks for the CPU)."""
         with np.load(path) as data:
             config = Config.from_dict(
                 json.loads(bytes(data["__config__"]).decode()))

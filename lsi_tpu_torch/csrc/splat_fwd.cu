@@ -20,7 +20,10 @@
 // Design, simple first: one thread per source pixel in a grid-stride
 // loop; neighbouring threads read neighbouring pixels (coalesced loads);
 // the [v*w, w] payload lives in registers; each in-bounds corner with a
-// non-zero fraction gets C+1 atomicAdds. Summation order across threads
+// non-zero fraction gets C+1 atomicAdds. SNAP (the render) snaps the
+// fractions as ops/splat.py does; without it the kernel is the exact
+// transpose of the unsnapped bilinear gather (the gather's image
+// gradient, lsi_tpu_torch/kernels/gather_cuda.py). Summation order across threads
 // is not fixed, so results differ from run to run in the last bits.
 // Bounds are tested in float BEFORE any float->int conversion: projected
 // coordinates reach +-1e6 where the projection clamps its denominator,
@@ -43,7 +46,7 @@ __device__ __forceinline__ float snap_fraction(float f) {
   return f;
 }
 
-template <int C>
+template <int C, bool SNAP>
 __global__ void splat_fwd_kernel(const float* __restrict__ values,
                                  const float* __restrict__ coords,
                                  const float* __restrict__ weights,
@@ -64,8 +67,8 @@ __global__ void splat_fwd_kernel(const float* __restrict__ values,
 
     const float x0 = floorf(x);
     const float y0 = floorf(y);
-    const float fx = snap_fraction(x - x0);
-    const float fy = snap_fraction(y - y0);
+    const float fx = SNAP ? snap_fraction(x - x0) : x - x0;
+    const float fy = SNAP ? snap_fraction(y - y0) : y - y0;
     const int64_t img_off = (i / pixels_per_image) * out_h * out_w;
 
 #pragma unroll
@@ -89,7 +92,7 @@ __global__ void splat_fwd_kernel(const float* __restrict__ values,
   }
 }
 
-template <int C>
+template <int C, bool SNAP>
 cudaError_t launch(const float* values, const float* coords,
                    const float* weights, float* accum, float* wsum,
                    int64_t total, int64_t pixels_per_image, int64_t out_h,
@@ -104,7 +107,7 @@ cudaError_t launch(const float* values, const float* coords,
   const int64_t wanted = (total + kThreads - 1) / kThreads;
   const int64_t cap = static_cast<int64_t>(sms) * 16;
   const int blocks = static_cast<int>(wanted < cap ? wanted : cap);
-  splat_fwd_kernel<C><<<blocks, kThreads, 0, stream>>>(
+  splat_fwd_kernel<C, SNAP><<<blocks, kThreads, 0, stream>>>(
       values, coords, weights, accum, wsum, total, pixels_per_image, out_h,
       out_w);
   return cudaGetLastError();
@@ -116,7 +119,7 @@ extern "C" int lsi_splat_fwd(const void* values, const void* coords,
                              const void* weights, void* accum, void* wsum,
                              int64_t n, int64_t src_h, int64_t src_w,
                              int channels, int64_t out_h, int64_t out_w,
-                             void* stream) {
+                             int snap, void* stream) {
   cudaError_t err = cudaSuccess;
   const int64_t pixels_per_image = src_h * src_w;
   const int64_t total = n * pixels_per_image;
@@ -130,8 +133,10 @@ extern "C" int lsi_splat_fwd(const void* values, const void* coords,
   switch (channels) {
 #define LSI_SPLAT_CASE(CH)                                                   \
   case CH:                                                                   \
-    err = launch<CH>(v, c, w, a, s, total, pixels_per_image, out_h, out_w,  \
-                     st);                                                    \
+    err = snap ? launch<CH, true>(v, c, w, a, s, total, pixels_per_image,   \
+                                  out_h, out_w, st)                          \
+               : launch<CH, false>(v, c, w, a, s, total, pixels_per_image,  \
+                                   out_h, out_w, st);                        \
     break;
     LSI_SPLAT_CASE(1)
     LSI_SPLAT_CASE(2)

@@ -1,14 +1,18 @@
-"""The LDI container and the forward-splat LDI render.
+"""The LDI container, the forward-splat LDI render and the per-layer
+inverse-warp gather.
 
 PyTorch counterpart of ``lsi_tpu/geometry/ldi.py`` (``LDI``,
-``render_forward``, ``project_layers_folded``). The render folds the layers
-into the source-row axis so ONE splat accumulates every layer of every
-image; the soft z-buffer blend comes from the shared normalization of the
+``render_forward``, ``project_layers_folded``,
+``gather_target_per_layer(_folded)``). The render folds the layers into
+the source-row axis so ONE splat accumulates every layer of every image;
+the soft z-buffer blend comes from the shared normalization of the
 ``exp(scale * disparity)`` weights.
 
-The splat goes through ``kernels.splat_cuda.splat``: the CUDA kernel for
-CUDA tensors, the plain version for CPU tensors. Both are exact (no
-vertical window), so ``window_dropped_frac`` is always 0.
+Both are differentiable: the splat goes through
+``kernels.splat_cuda.SplatFn`` and the gather through
+``kernels.gather_cuda.GatherFn`` (the CUDA kernels for CUDA tensors, the
+plain versions for CPU tensors). Both are exact (no vertical window), so
+``window_dropped_frac`` is always 0.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from typing import Optional
 import torch
 
 from lsi_tpu_torch.geometry import projection
-from lsi_tpu_torch.kernels.splat_cuda import splat
+from lsi_tpu_torch.kernels.gather_cuda import GatherFn
+from lsi_tpu_torch.kernels.splat_cuda import SplatFn
 from lsi_tpu_torch.utils.helpers import divide_safe
 
 
@@ -110,7 +115,8 @@ def render_forward(ldi: LDI, pose_src2trg: torch.Tensor,
 
     payload = torch.cat(
         [ldi.textures.float().reshape(b, l * h, w, 3), trg_disp], dim=-1)
-    accum, wsum = splat(payload, trg_coords, weights, tuple(out_hw))
+    accum, wsum = SplatFn.apply(payload, trg_coords.contiguous(),
+                                weights.contiguous(), tuple(out_hw))
 
     # Exact > 0 test: shifted weights of occluded layers can be tiny yet
     # still meaningful after normalization.
@@ -121,3 +127,44 @@ def render_forward(ldi: LDI, pose_src2trg: torch.Tensor,
         "coverage": wsum,
         "window_dropped_frac": torch.zeros((), device=wsum.device),
     }
+
+
+def gather_target_per_layer_folded(ldi: LDI, target_image: torch.Tensor,
+                                   pose_src2trg: torch.Tensor,
+                                   K_trg: Optional[torch.Tensor] = None):
+    """Folded (B*L, H, W, C) variant of :func:`gather_target_per_layer`.
+
+    The gather reads the (B, Ht, Wt, C) target directly at the folded
+    (B, L*H, W, 2) coordinates: no per-layer copy of the target. The
+    target is sampled in float32.
+
+    Returns (sampled (B*L, H, W, C), valid (B*L, H, W, 1) = in front of
+    the target camera x in-image bilinear mass, trg_disp (B*L, H, W, 1)).
+    """
+    b, l, h, w = ldi.textures.shape[:4]
+    trg_coords, trg_disp, in_front = project_layers_folded(
+        ldi, pose_src2trg, K_trg)
+    sampled, in_bounds = GatherFn.apply(
+        target_image.float().contiguous(),
+        trg_coords.reshape(b, l * h, w, 2).contiguous())
+    sampled = sampled.reshape(b * l, h, w, -1)
+    in_bounds = in_bounds.reshape(b * l, h, w, 1)
+    return sampled, in_front * in_bounds, trg_disp
+
+
+def gather_target_per_layer(ldi: LDI, target_image: torch.Tensor,
+                            pose_src2trg: torch.Tensor,
+                            K_trg: Optional[torch.Tensor] = None):
+    """Inverse warp: sample the target image at each layer's projection.
+
+    Returns:
+      sampled:  (B, L, H, W, C) target colours at each layer's
+        correspondence.
+      valid:    (B, L, H, W, 1) in-image & in-front mass (float32).
+      trg_disp: (B, L, H, W, 1) per-layer disparity in the target frame.
+    """
+    b, l, h, w, _ = ldi.textures.shape
+    sampled, valid, trg_disp = gather_target_per_layer_folded(
+        ldi, target_image, pose_src2trg, K_trg)
+    return (sampled.reshape(b, l, h, w, -1), valid.reshape(b, l, h, w, 1),
+            trg_disp.reshape(b, l, h, w, 1))

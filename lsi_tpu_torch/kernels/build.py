@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -33,9 +35,23 @@ _INT = ctypes.c_int
 LIBRARIES = {
     "splat_fwd": (("splat_fwd.cu",), {
         # values, coords, weights, accum, wsum, n, src_h, src_w, channels,
-        # out_h, out_w, stream
+        # out_h, out_w, snap, stream
         "lsi_splat_fwd": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
-                          _I64, _I64, _P],
+                          _I64, _I64, _INT, _P],
+    }),
+    "splat_bwd": (("splat_bwd.cu",), {
+        # values, coords, weights, g_accum, g_wsum, d_values, d_coords,
+        # d_weights, n, src_h, src_w, channels, out_h, out_w, stream
+        "lsi_splat_vjp": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                          _INT, _I64, _I64, _P],
+        # image, coords, sampled, valid, n, src_h, src_w, channels, img_h,
+        # img_w, stream
+        "lsi_gather_fwd": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64,
+                           _I64, _P],
+        # image, coords, g_sampled, g_valid, d_coords, n, src_h, src_w,
+        # channels, img_h, img_w, stream
+        "lsi_gather_bwd_coords": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
+                                  _I64, _I64, _P],
     }),
 }
 
@@ -89,6 +105,18 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def launch(library: str, function: str, device, *args) -> None:
+    """Call ``function`` of ``library`` (built and loaded at first use) on
+    ``device`` with ``args`` and that device's current stream; raise if
+    the launch failed (the C entry points return cudaGetLastError())."""
+    lib = load(library)
+    with torch.cuda.device(device):
+        err = getattr(lib, function)(
+            *args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{function} launch failed: cudaError {err}")
 
 
 @functools.cache

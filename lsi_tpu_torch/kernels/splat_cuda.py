@@ -1,14 +1,22 @@
-"""Forward bilinear splat: the CUDA kernel's wrapper.
+"""Forward bilinear splat (K1) and its VJP (K2 + K3): the CUDA kernels'
+wrappers and the autograd Function that joins them.
 
-The kernel is ``lsi_tpu_torch/csrc/splat_fwd.cu`` (hand-written for
-sm_90a, bound through ctypes). It replaces the TPU kernel
-``lsi_tpu/kernels/splat_pallas.py:_splat_kernel`` with the exact,
-unwindowed semantics of ``ops/splat.splat_bilinear``; the source note says
-what bounds it on the card and what the design does about it.
+The kernels are hand-written for sm_90a and bound through ctypes:
 
-A tensor on the CPU takes the plain version (``ops/splat.py``); a CUDA
-tensor launches the kernel, and a failed build or launch raises. There is
-no fallback from one to the other.
+* ``splat`` launches ``lsi_tpu_torch/csrc/splat_fwd.cu`` (K1), replacing
+  ``lsi_tpu/kernels/splat_pallas.py:_splat_kernel``;
+* ``splat_vjp`` launches ``lsi_splat_vjp`` of
+  ``lsi_tpu_torch/csrc/splat_bwd.cu``, replacing ``_splat_bwd_kernel``
+  (K2) with the combine of ``splat_pallas_diff``'s backward (K3) fused in.
+
+Both follow the exact, unwindowed semantics of ``ops/splat.splat_bilinear``
+(the JAX lax path); the source notes say what bounds each kernel on the
+card. A tensor on the CPU takes the plain version (``ops/splat.py``, its
+VJP by autograd); a CUDA tensor launches the kernel, and a failed build or
+launch raises. There is no fallback from one to the other.
+
+The kernels record no autograd node, so a direct call on tensors that
+require grad raises: differentiate through :class:`SplatFn`.
 """
 
 from __future__ import annotations
@@ -17,6 +25,33 @@ import torch
 
 from lsi_tpu_torch.kernels import build
 from lsi_tpu_torch.ops.splat import splat_bilinear
+
+
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel call would silently drop a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} launches a kernel that records no autograd node, and an "
+            "input requires grad: call it through its autograd Function "
+            "(SplatFn / GatherFn) or under torch.no_grad()")
+
+
+def check_tensors(tensors, device: torch.device) -> None:
+    """float32, contiguous, all on ``device``."""
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def check_device(device: torch.device) -> bool:
+    """True for a CUDA device, False for the CPU; raise on anything else."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels run on cpu or cuda, not {device}")
+    return device.type == "cuda"
 
 
 def _check(values: torch.Tensor, coords: torch.Tensor,
@@ -28,14 +63,8 @@ def _check(values: torch.Tensor, coords: torch.Tensor,
     for name, t in (("coords", coords), ("weights", weights)):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
-    for name, t in (("values", values), ("coords", coords),
-                    ("weights", weights)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != values.device:
-            raise ValueError(f"{name} is on {t.device}, values on {values.device}")
+    check_tensors({"values": values, "coords": coords, "weights": weights},
+                  values.device)
     if not 1 <= c <= 8:
         raise ValueError(f"the kernel takes 1..8 channels, got {c}")
     out_h, out_w = out_hw
@@ -44,8 +73,8 @@ def _check(values: torch.Tensor, coords: torch.Tensor,
 
 
 def splat(values: torch.Tensor, coords: torch.Tensor, weights: torch.Tensor,
-          out_hw):
-    """Forward-splat ``values`` into an ``out_hw`` image.
+          out_hw, snap: bool = True):
+    """Forward-splat ``values`` into an ``out_hw`` image (K1).
 
     Args:
       values:  (N, Hs, Ws, C) float32, C in 1..8; layers may be folded into
@@ -53,14 +82,15 @@ def splat(values: torch.Tensor, coords: torch.Tensor, weights: torch.Tensor,
       coords:  (N, Hs, Ws, 2) float32 target pixel [x, y].
       weights: (N, Hs, Ws, 1) float32.
       out_hw:  (out_h, out_w).
+      snap: snap the bilinear fractions (the render); False gives the
+        transpose of the unsnapped gather (``GatherFn``'s image gradient).
     Returns:
       accum (N, out_h, out_w, C) and wsum (N, out_h, out_w, 1), float32.
     """
     _check(values, coords, weights, out_hw)
-    if values.device.type == "cpu":
-        return splat_bilinear(values, coords, weights, out_hw)
-    if values.device.type != "cuda":
-        raise ValueError(f"splat runs on cpu or cuda, not {values.device}")
+    check_no_grad("splat", values, coords, weights)
+    if not check_device(values.device):
+        return splat_bilinear(values, coords, weights, out_hw, snap=snap)
 
     n, hs, ws, c = values.shape
     out_h, out_w = (int(v) for v in out_hw)
@@ -68,17 +98,93 @@ def splat(values: torch.Tensor, coords: torch.Tensor, weights: torch.Tensor,
                         device=values.device)
     wsum = torch.zeros((n, out_h, out_w, 1), dtype=torch.float32,
                        device=values.device)
-    lib = build.load("splat_fwd")
-    with torch.cuda.device(values.device):
-        err = lib.lsi_splat_fwd(
-            values.data_ptr(), coords.data_ptr(), weights.data_ptr(),
-            accum.data_ptr(), wsum.data_ptr(), n, hs, ws, c, out_h, out_w,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"splat_fwd launch failed: cudaError {err}")
+    build.launch("splat_fwd", "lsi_splat_fwd", values.device,
+                 values.data_ptr(), coords.data_ptr(), weights.data_ptr(),
+                 accum.data_ptr(), wsum.data_ptr(), n, hs, ws, c, out_h,
+                 out_w, int(snap))
     splat.launches += 1
     return accum, wsum
 
 
 #: Kernel launches made through :func:`splat` (CPU calls do not count).
 splat.launches = 0
+
+
+def _plain_vjp(values, coords, weights, g_accum, g_wsum, out_hw, needs):
+    """The plain VJP: autograd through ``splat_bilinear``."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip((values, coords, weights), needs)]
+    with torch.enable_grad():
+        accum, wsum = splat_bilinear(*inputs, out_hw)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad((accum, wsum), wanted,
+                                         (g_accum, g_wsum)))
+    return tuple(next(grads) if need else None for need in needs)
+
+
+def splat_vjp(values: torch.Tensor, coords: torch.Tensor,
+              weights: torch.Tensor, g_accum: torch.Tensor,
+              g_wsum: torch.Tensor, out_hw, needs=(True, True, True)):
+    """The splat's VJP (K2 + K3) at the forward's inputs.
+
+    Args:
+      values, coords, weights: the forward's inputs (see :func:`splat`).
+      g_accum: (N, out_h, out_w, C) and g_wsum (N, out_h, out_w, 1)
+        float32 cotangents of the forward's outputs.
+      needs: which of (d_values, d_coords, d_weights) to compute.
+    Returns:
+      (d_values, d_coords, d_weights), shaped as the inputs, None where not
+      needed. ``d_coords`` is 0 where a fraction lies in a snap zone.
+    """
+    _check(values, coords, weights, out_hw)
+    n, hs, ws, c = values.shape
+    out_h, out_w = (int(v) for v in out_hw)
+    want = {"g_accum": (n, out_h, out_w, c), "g_wsum": (n, out_h, out_w, 1)}
+    for name, t in (("g_accum", g_accum), ("g_wsum", g_wsum)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
+    check_tensors({"g_accum": g_accum, "g_wsum": g_wsum}, values.device)
+    check_no_grad("splat_vjp", values, coords, weights, g_accum, g_wsum)
+    needs = tuple(bool(x) for x in needs)
+    if not check_device(values.device):
+        return _plain_vjp(values, coords, weights, g_accum, g_wsum, out_hw,
+                          needs)
+
+    outs = [torch.empty_like(t) if need else None
+            for t, need in zip((values, coords, weights), needs)]
+    ptrs = [0 if t is None else t.data_ptr() for t in outs]
+    build.launch("splat_bwd", "lsi_splat_vjp", values.device,
+                 values.data_ptr(), coords.data_ptr(), weights.data_ptr(),
+                 g_accum.data_ptr(), g_wsum.data_ptr(), *ptrs, n, hs, ws, c,
+                 out_h, out_w)
+    splat_vjp.launches += 1
+    return tuple(outs)
+
+
+#: Kernel launches made through :func:`splat_vjp` (CPU calls do not count).
+splat_vjp.launches = 0
+
+
+class SplatFn(torch.autograd.Function):
+    """Differentiable splat: K1 forward, K2 + K3 backward.
+
+    ``SplatFn.apply(values, coords, weights, out_hw) -> (accum, wsum)``;
+    the backward computes only the gradients autograd asks for.
+    """
+
+    @staticmethod
+    def forward(ctx, values, coords, weights, out_hw):
+        ctx.out_hw = tuple(int(v) for v in out_hw)
+        ctx.save_for_backward(values, coords, weights)
+        return splat(values, coords, weights, ctx.out_hw)
+
+    @staticmethod
+    def backward(ctx, g_accum, g_wsum):
+        needs = ctx.needs_input_grad[:3]
+        if not any(needs):
+            return None, None, None, None
+        values, coords, weights = ctx.saved_tensors
+        d_values, d_coords, d_weights = splat_vjp(
+            values, coords, weights, g_accum.float().contiguous(),
+            g_wsum.float().contiguous(), ctx.out_hw, needs)
+        return d_values, d_coords, d_weights, None

@@ -9,7 +9,7 @@ layer 0's texture is the input image unless
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -29,6 +29,44 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
         raise ValueError(
             f"compute_dtype must be one of {sorted(_DTYPES)}, "
             f"got {cfg.compute_dtype!r}") from None
+
+
+def _layer0_owned_channels(cfg: ModelConfig, name: str) -> int:
+    """How much of a parameter (``state_dict`` name) layer 0's output
+    depends on: -1 for the whole tensor (the shared UNet trunk), N for the
+    leading N output channels (channel 0 of ``disp_head``; channels 0-2 of
+    ``tex_head`` when layer 0's texture is predicted), 0 for none. Output
+    channels are dim 0 of a conv weight and of its bias."""
+    module = name.split(".")[0]
+    if module == "unet":
+        return -1
+    if module == "disp_head":
+        return 1
+    if module == "tex_head" and not cfg.layer0_texture_from_input:
+        return 3
+    return 0
+
+
+def freeze_layer0_grad_mask(cfg: ModelConfig,
+                            tree: Dict[str, torch.Tensor]
+                            ) -> Dict[str, torch.Tensor]:
+    """Zero the entries of a {parameter name: gradient or update} dict that
+    feed layer 0's output (a new dict; the inputs are not changed).
+
+    The trainer applies it to the gradients AND to the optimizer's updates
+    (Adam's momentum would otherwise keep moving frozen parameters), so
+    layer 0 stays bitwise constant (``train.freeze_layer0_step``).
+    """
+    out = {}
+    for name, g in tree.items():
+        n = _layer0_owned_channels(cfg, name)
+        if n < 0:
+            g = torch.zeros_like(g)
+        elif n:
+            g = g.clone()
+            g[:n] = 0.0
+        out[name] = g
+    return out
 
 
 class LDIPredictor(nn.Module):

@@ -1,8 +1,12 @@
-"""Forward bilinear splat (scatter-add): the plain PyTorch version.
+"""Forward bilinear splat (scatter-add) and its tent sums: the plain
+PyTorch versions.
 
 PyTorch counterpart of ``lsi_tpu/ops/splat.py`` (``method="scatter"``, no
-vertical window). It is the CPU path of ``kernels.splat_cuda.splat`` and
-the reference the CUDA kernel is held against on the card.
+vertical window). ``splat_bilinear`` is the CPU path of
+``kernels.splat_cuda.splat`` (K1) and, through autograd, of its VJP (K2 +
+K3); ``tent_sums`` is the plain form of the per-pixel sums those kernels
+and the gather kernels compute. The CUDA kernels are held against these
+on the card.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ def snap_fraction(f: torch.Tensor) -> torch.Tensor:
 
 
 def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
-                   weights: torch.Tensor, out_hw):
+                   weights: torch.Tensor, out_hw, snap: bool = True):
     """Forward-splat per-pixel values into a target image.
 
     Args:
@@ -35,6 +39,9 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
       coords:  (N, Hs, Ws, 2) target pixel [x, y] for each source pixel.
       weights: (N, Hs, Ws, 1) per-source-pixel weight.
       out_hw:  (out_h, out_w) target size.
+      snap: snap the bilinear fractions (the render's splat). Without it
+        the splat is the exact transpose of ``ops.gather.bilinear_sample``
+        (the gather's image gradient).
     Returns:
       accum (N, out_h, out_w, C) float32 sum of ``w * frac * v`` and
       wsum (N, out_h, out_w, 1) float32 sum of ``w * frac``.
@@ -51,8 +58,11 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
     y = coords[..., 1].float().reshape(n, p)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
-    fx = snap_fraction(x - x0)
-    fy = snap_fraction(y - y0)
+    fx = x - x0
+    fy = y - y0
+    if snap:
+        fx = snap_fraction(fx)
+        fy = snap_fraction(fy)
 
     # Out-of-image corners go to one trash row past the end, sliced off
     # below. The bounds test is made in float, and only in-bounds
@@ -83,3 +93,61 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
     out.index_add_(0, idx, contrib)
     out = out[:trash].reshape(n, out_h, out_w, c + 1)
     return out[..., :c], out[..., c:]
+
+
+def corner_reads(image: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor):
+    """``image`` (N, H, W, C) read at the four integer corners
+    (x0 + dx, y0 + dy) of each (N, P) float corner, in the order 00, 01
+    (x + 1), 10 (y + 1), 11; 0 where the corner lies outside the image.
+
+    The bounds test is made in float and only clamped, finite coordinates
+    reach the integer conversion (coordinates reach +-1e6, inf or nan).
+    """
+    n, h, w, c = image.shape
+    flat = image.reshape(n, h * w, c)
+    reads = []
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        xi = x0 + dx
+        yi = y0 + dy
+        inb = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        lin = (yi.clamp(0, h - 1).nan_to_num(0.0).to(torch.int64) * w
+               + xi.clamp(0, w - 1).nan_to_num(0.0).to(torch.int64))
+        g = torch.gather(flat, 1, lin[..., None].expand(-1, -1, c))
+        reads.append(g * inb[..., None])
+    return reads
+
+
+def tent_sums(image: torch.Tensor, coords: torch.Tensor, snap: bool):
+    """Per-pixel tent sums of ``image`` over each coordinate's bilinear
+    neighbourhood, by four gathers.
+
+        S0 = sum_k frac_k * I_k              (the bilinear gather)
+        SX = (1 - fy)(I01 - I00) + fy (I11 - I10)   (d S0 / d x)
+        SY = (1 - fx)(I10 - I00) + fx (I11 - I01)   (d S0 / d y)
+
+    with I_k the image at corner k (0 outside the image) and the fractions
+    snapped when ``snap`` (the splat's VJP) or not (the gather).
+
+    Args:
+      image:  (N, H, W, C) float32.
+      coords: (N, Hs, Ws, 2) pixel [x, y] into the image.
+    Returns:
+      S0, SX, SY, each (N, Hs, Ws, C) float32.
+    """
+    n, hs, ws, _ = coords.shape
+    x = coords[..., 0].float().reshape(n, -1)
+    y = coords[..., 1].float().reshape(n, -1)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    if snap:
+        fx = snap_fraction(fx)
+        fy = snap_fraction(fy)
+    i00, i01, i10, i11 = corner_reads(image.float(), x0, y0)
+    s0 = ((1 - fx) * (1 - fy) * i00 + fx * (1 - fy) * i01
+          + (1 - fx) * fy * i10 + fx * fy * i11)
+    sx = (1 - fy) * (i01 - i00) + fy * (i11 - i10)
+    sy = (1 - fx) * (i10 - i00) + fx * (i11 - i01)
+    shape = (n, hs, ws, image.shape[-1])
+    return s0.reshape(shape), sx.reshape(shape), sy.reshape(shape)

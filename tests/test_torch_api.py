@@ -68,7 +68,7 @@ def test_load_jax_saved_model_and_serve(tmp_path, rng, dtype):
                             H, W)
     path = str(tmp_path / "model.npz")
     jm.save(path)
-    tm = tapi.LSIModel.load(path)
+    tm = tapi.LSIModel.load(path, device="cpu")
     assert tm.config == toy_config(tconfig, dtype)
 
     img = rng.uniform(size=(2, H, W, 3)).astype(np.float32)
@@ -92,12 +92,12 @@ def test_load_jax_saved_model_and_serve(tmp_path, rng, dtype):
 
 def test_save_round_trips_both_ways(tmp_path):
     """The port's save is read by the JAX package's load, params bitwise."""
-    tm = tapi.LSIModel.init(5, toy_config(tconfig), H, W)
+    tm = tapi.LSIModel.init(5, toy_config(tconfig), H, W, device="cpu")
     path = str(tmp_path / "port.npz")
     tm.save(path)
     jm = japi.LSIModel.load(path)
     assert dataclasses.asdict(jm.config) == dataclasses.asdict(tm.config)
-    back = tapi.LSIModel.load(path)
+    back = tapi.LSIModel.load(path, device="cpu")
     for k, v in tm.net.state_dict().items():
         assert torch.equal(v, back.net.state_dict()[k]), k
     img = np.random.default_rng(1).uniform(size=(1, H, W, 3)).astype(
@@ -110,7 +110,7 @@ def test_save_round_trips_both_ways(tmp_path):
 def test_golden_fixture_on_cpu():
     """The fixture chip_smoke.py holds the CUDA path to, on the CPU path
     (same tolerances as the script)."""
-    model = tapi.LSIModel.load(GOLDEN)
+    model = tapi.LSIModel.load(GOLDEN, device="cpu")
     with np.load(GOLDEN) as g:
         gold = {k: g[k] for k in g.files if not k.startswith("params/")}
     ldi = model.predict_ldi(torch.from_numpy(gold["image"]),
@@ -132,7 +132,7 @@ def test_golden_fixture_on_cpu():
                                          ("use_pallas", "off"),
                                          ("splat_method", "sort")])
 def test_render_rejects_tpu_only_config(field, value):
-    tm = tapi.LSIModel.init(0, toy_config(tconfig), H, W)
+    tm = tapi.LSIModel.init(0, toy_config(tconfig), H, W, device="cpu")
     ldi = tm.predict_ldi(torch.zeros(1, H, W, 3))
     cfg = dataclasses.replace(tconfig.RenderConfig(), **{field: value})
     with pytest.raises(ValueError):
@@ -141,7 +141,7 @@ def test_render_rejects_tpu_only_config(field, value):
 
 def test_render_ignores_window_fields():
     """pallas_max_dy and window_check have no effect: the splat is exact."""
-    tm = tapi.LSIModel.init(0, toy_config(tconfig), H, W)
+    tm = tapi.LSIModel.init(0, toy_config(tconfig), H, W, device="cpu")
     ldi = tm.predict_ldi(torch.rand(1, H, W, 3,
                                     generator=torch.Generator().manual_seed(0)))
     pose = torch.from_numpy(np.array(jtf.translation_pose([[-0.2, 0.1, 0]])))
@@ -153,22 +153,53 @@ def test_render_ignores_window_fields():
 
 def test_init_checks_image_size():
     with pytest.raises(ValueError):
-        tapi.LSIModel.init(0, toy_config(tconfig), 30, 64)
+        tapi.LSIModel.init(0, toy_config(tconfig), 30, 64, device="cpu")
+
+
+def test_entry_points_default_to_cuda(tmp_path):
+    """Without ``device`` the model goes to the card; with no card that
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises((AssertionError, RuntimeError)):
+        tapi.LSIModel.init(0, toy_config(tconfig), H, W)
+    path = str(tmp_path / "model.npz")
+    tapi.LSIModel.init(0, toy_config(tconfig), H, W, device="cpu").save(path)
+    with pytest.raises((AssertionError, RuntimeError)):
+        tapi.LSIModel.load(path)
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter serves predict_ldi -> render through the port
-    with neither JAX nor any module of the JAX package loaded."""
+    """A fresh interpreter serves predict_ldi -> render and takes one
+    train step of a toy kitti_ldi3_b16 through the port with neither JAX
+    nor any module of the JAX package loaded."""
     code = textwrap.dedent("""
+        import dataclasses
+        import math
         import sys
         import torch
         from lsi_tpu_torch import Config, LSIModel, ModelConfig
+        from lsi_tpu_torch.config import get_config
+        from lsi_tpu_torch.data.pipeline import batch_stream
         from lsi_tpu_torch.geometry.transforms import translation_pose
+        from lsi_tpu_torch.train.trainer import create_state, make_train_step
         cfg = Config(model=ModelConfig(base_filters=8, num_scales=2))
-        model = LSIModel.init(0, cfg, 32, 64)
+        model = LSIModel.init(0, cfg, 32, 64, device="cpu")
         ldi = model.predict_ldi(torch.rand(1, 32, 64, 3))
         rgb = model.render(ldi, translation_pose([[-0.1, 0.0, 0.0]]))
         assert rgb.shape == (1, 32, 64, 3) and torch.isfinite(rgb).all()
+        cfg = get_config("kitti_ldi3_b16")
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, base_filters=8,
+                                           num_scales=2),
+            data=dataclasses.replace(cfg.data, dataset="synthetic",
+                                     height=32, width=64, batch_size=2))
+        state = create_state(cfg, seed=0, device="cpu")
+        step = make_train_step(cfg)
+        state, metrics = step(state, next(batch_stream(cfg.data,
+                                                       device="cpu")))
+        assert all(math.isfinite(float(v)) for v in metrics.values())
+        assert float(metrics["photo_splat"]) > 0 and state.step == 1
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "lsi_tpu"))
         assert not bad, bad

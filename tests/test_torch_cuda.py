@@ -1,5 +1,6 @@
-"""The port's CUDA kernel on the card: K1 (forward splat) against its plain
-version, its launch count, and the render and golden fixture on CUDA.
+"""The port's CUDA kernels on the card: K1 (forward splat), the splat VJP
+(K2 + K3) and the bilinear gather (K4) against their plain versions, their
+launch counts, the render and golden fixture on CUDA, and one train step.
 
 Every test needs a CUDA card (marker ``gpu``) and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed; there,
@@ -8,6 +9,7 @@ skip the JAX-only conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -15,15 +17,22 @@ import pytest
 import torch
 
 from lsi_tpu_torch.api import LSIModel
+from lsi_tpu_torch.config import get_config
+from lsi_tpu_torch.data.pipeline import Batch, batch_stream
 from lsi_tpu_torch.geometry.ldi import LDI, render_forward
 from lsi_tpu_torch.geometry.transforms import pose_from_euler
-from lsi_tpu_torch.kernels import splat_cuda
+from lsi_tpu_torch.kernels import gather_cuda, splat_cuda
+from lsi_tpu_torch.ops.gather import bilinear_sample
 from lsi_tpu_torch.ops.splat import splat_bilinear
+from lsi_tpu_torch.train.trainer import create_state, make_train_step
 
 pytestmark = pytest.mark.gpu
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "torch_golden_toy.npz")
+# The kernel wrappers, each with its launch count.
+KERNELS = (splat_cuda.splat, splat_cuda.splat_vjp, gather_cuda.gather_fwd,
+           gather_cuda.gather_bwd_coords)
 
 
 @pytest.fixture
@@ -126,3 +135,139 @@ def test_golden_fixture_on_cuda(cuda):
         torch.testing.assert_close(out[k], gold[k], rtol=0, atol=1e-3)
     torch.testing.assert_close(out["coverage"], gold["coverage"], rtol=1e-3,
                                atol=1e-5)
+
+
+# --------------------------------------------- K2/K3 (splat VJP) and K4
+
+def gather_inputs(seed, n, hi, wi, c, hs, ws):
+    """Image and render-like coordinates that cross every border, with
+    +-1e6 outliers."""
+    rng = np.random.default_rng(seed)
+    image = rng.uniform(size=(n, hi, wi, c)).astype(np.float32)
+    x = (np.arange(ws, dtype=np.float32)[None, None, :]
+         + rng.uniform(-6, 6, (n, hs, ws)).astype(np.float32))
+    y = ((np.arange(hs, dtype=np.float32) % hi)[None, :, None]
+         + rng.uniform(-2, 2, (n, hs, ws)).astype(np.float32))
+    x[rng.uniform(size=x.shape) < 0.05] = 1e6
+    y[rng.uniform(size=y.shape) < 0.05] = -1e6
+    return image, np.stack([x, y], -1)
+
+
+def cotangents_like(seed, *tensors):
+    gen = torch.Generator(device=tensors[0].device).manual_seed(seed)
+    return [torch.randn(t.shape, generator=gen, device=t.device)
+            for t in tensors]
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+@pytest.mark.parametrize("kind", ["random", "integer", "huge"])
+def test_splat_fn_backward_matches_plain(cuda, kind, c):
+    """SplatFn (K1 forward, lsi_splat_vjp backward) against autograd
+    through the plain splat, for each input's gradient."""
+    out_hw = (16, 128)
+    arrays = splat_inputs(3, 2, 32, 128, c, out_hw, kind)
+    if kind == "random":  # some fractions inside the snap zones
+        arrays[1][0, :4, :, 0] = np.round(arrays[1][0, :4, :, 0]) + 5e-5
+    # Non-finite coordinates: the plain gradient is nan there (nan * 0),
+    # the kernel's 0; both drop the pixel in the forward. Compare finite.
+    arrays[1][~np.isfinite(arrays[1])] = 1e6
+    grads = []
+    for fn in (splat_cuda.SplatFn.apply, splat_bilinear):
+        ins = [torch.from_numpy(a).to(cuda).requires_grad_() for a in arrays]
+        outs = fn(*ins, out_hw)
+        cots = cotangents_like(7, *outs)
+        grads.append(torch.autograd.grad(outs, ins, cots))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        # Sums of 4 corner terms in another order: 1e-5 of the largest.
+        atol = 1e-5 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+def test_splat_vjp_is_bitwise_repeatable_and_counts(cuda):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in splat_inputs(4, 2, 32, 128, 4, (16, 128), "huge")]
+    cots = cotangents_like(8, torch.empty(2, 16, 128, 4, device=cuda),
+                           torch.empty(2, 16, 128, 1, device=cuda))
+    before = splat_cuda.splat_vjp.launches
+    a = splat_cuda.splat_vjp(*args, *cots, (16, 128))
+    b = splat_cuda.splat_vjp(*args, *cots, (16, 128))
+    assert splat_cuda.splat_vjp.launches == before + 2
+    for x, y in zip(a, b):  # a gather with no atomics
+        assert torch.equal(x, y)
+    # The nan/inf coordinates at [0, 0, :3] drop their pixels: no gradient.
+    for x in a:
+        assert float(x[0, 0, :3].abs().max()) == 0.0
+    with pytest.raises(RuntimeError, match="autograd"):
+        splat_cuda.splat(args[0].requires_grad_(), *args[1:], (16, 128))
+
+
+@pytest.mark.parametrize("c", [1, 3, 8])
+def test_gather_fn_matches_plain(cuda, c):
+    """GatherFn (lsi_gather_fwd; lsi_gather_bwd_coords and the unsnapped K1
+    for the image) against autograd through the plain gather, with a
+    non-zero cotangent on ``valid``."""
+    image, coords = gather_inputs(5, 2, 16, 128, c, 48, 128)
+    results = []
+    for fn in (gather_cuda.GatherFn.apply, bilinear_sample):
+        img = torch.from_numpy(image).to(cuda).requires_grad_()
+        crd = torch.from_numpy(coords).to(cuda).requires_grad_()
+        outs = fn(img, crd)
+        cots = cotangents_like(9, *outs)
+        results.append((outs, torch.autograd.grad(outs, (img, crd), cots)))
+    torch.cuda.synchronize()
+    (outs, grads), (ref_outs, ref_grads) = results
+    for got, want in zip(outs, ref_outs):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    for got, want in zip(grads, ref_grads):
+        # d_image sums float32 atomics; d_coords 4 corner terms: 1e-5.
+        atol = 1e-5 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+def test_gather_kernels_count_launches(cuda):
+    image, coords = (torch.from_numpy(a).to(cuda)
+                     for a in gather_inputs(6, 1, 16, 128, 3, 32, 128))
+    before = (gather_cuda.gather_fwd.launches,
+              gather_cuda.gather_bwd_coords.launches)
+    sampled, valid = gather_cuda.gather_fwd(image, coords)
+    g_valid = torch.ones_like(valid)
+    d = gather_cuda.gather_bwd_coords(image, coords,
+                                      torch.zeros_like(sampled), g_valid)
+    assert (gather_cuda.gather_fwd.launches,
+            gather_cuda.gather_bwd_coords.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert float(d.abs().max()) > 0  # the valid mass's own gradient
+    with pytest.raises(RuntimeError, match="autograd"):
+        gather_cuda.gather_fwd(image.requires_grad_(), coords)
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One toy step of kitti_ldi3_b16 on the card and on the CPU from the
+    same params and batch: every kernel launched once, the same loss."""
+    cfg = get_config("kitti_ldi3_b16")
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, base_filters=8,
+                                       num_scales=2, compute_dtype="float32"),
+        data=dataclasses.replace(cfg.data, dataset="synthetic", height=32,
+                                 width=64, batch_size=2))
+    batch = next(batch_stream(cfg.data, device="cpu"))
+    metrics = {}
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda):
+            state = create_state(cfg, seed=0, device=dev)
+            counts = [k.launches for k in KERNELS]
+            b = Batch(**{f.name: getattr(batch, f.name).to(dev)
+                         for f in dataclasses.fields(Batch)})
+            _, metrics[str(dev)] = make_train_step(cfg)(state, b)
+            launched = [k.launches - n for k, n in zip(KERNELS, counts)]
+            assert launched == ([0] * 4 if dev == "cpu" else [1] * 4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    for k, v in metrics["cpu"].items():
+        # float32 with TF32 off; grad_norm moves where a coordinate crosses
+        # a pixel or snap-zone edge (tests/test_torch_train.py): 1e-3.
+        np.testing.assert_allclose(float(metrics[str(cuda)][k]), float(v),
+                                   rtol=1e-3, atol=1e-6, err_msg=k)

@@ -4,11 +4,13 @@ the LDI render.
 The same numpy inputs go through ``lsi_tpu`` (JAX on the CPU) and
 ``lsi_tpu_torch``; each test states its tolerance. The render is also held
 against the numpy loop oracle and against the JAX Pallas kernel in
-interpret mode.
+interpret mode; the projection's and the render's gradients against
+``jax.vjp``.
 """
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -251,3 +253,67 @@ def test_high_scale_approaches_hard_zbuffer():
     out = render_forward(ldi_pair(tex, disp, K)[0], ttf.identity_pose((1,)),
                          zbuffer_scale=200.0)
     close(out["rgb"], np.ones((1, h, w, 3)), rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------------------ gradients
+
+def test_forward_project_grads_match_jax(rng):
+    """The VJP of the projection in the disparity, through the
+    denominator's clamp (a ``where``: no gradient where it clamps) and the
+    ``valid`` product; one row sits exactly at the target camera plane."""
+    disp, K, K2, pose = _projection_case(rng)
+    disp[:, 0] = 0.5
+    pose = pose.copy()
+    pose[0, 2, 3] = -2.0  # z_trg = 0 for the first image's d = 0.5 row
+    pose[0, :3, :3] = np.eye(3)
+    g = [rng.normal(size=s).astype(np.float32)
+         for s in ((2, 12, 16, 2), (2, 12, 16, 1), (2, 12, 16, 1))]
+
+    def jfn(d):
+        return jproj.forward_project(d, jnp.asarray(K), jnp.asarray(K2),
+                                     jnp.asarray(pose))
+
+    _, f = jax.vjp(jfn, jnp.asarray(disp))
+    (want,) = f(tuple(jnp.asarray(x) for x in g))
+    d = t(disp).requires_grad_()
+    out = tproj.forward_project(d, t(K), t(K2), t(pose))
+    assert float(out[2][0, 0].max()) == 0.0  # the clamped row is invalid
+    # valid is a comparison: no gradient in either package.
+    (got,) = torch.autograd.grad(out[:2], (d,), tuple(t(x) for x in g[:2]))
+    assert torch.isfinite(got).all()
+    # Same float32 chain in another order: 1e-5 of the largest entry.
+    close(got, want, rtol=1e-5, atol=1e-5 * np.abs(np.asarray(want)).max())
+
+
+def test_render_grads_match_jax(rng):
+    """The VJP of render_forward in the textures and disparities: the
+    detached d_shift max, the exp(scale * d) weights, the splat's VJP and
+    divide_safe, against the JAX lax path."""
+    tex, disp, K = two_layer(rng, b=2)
+    pose = np.array(jtf.pose_from_euler(
+        np.array([[0.02, -0.03, 0.01], [0.0, 0.05, 0.0]], np.float32),
+        np.array([[-0.1, 0.02, 0.0], [0.15, 0.0, -0.05]], np.float32)))
+    g = [rng.normal(size=s).astype(np.float32)
+         for s in ((2, 24, 32, 3), (2, 24, 32, 1), (2, 24, 32, 1))]
+
+    def jfn(tx, dp):
+        out = j_render(JLDI(textures=tx, disparities=dp,
+                            intrinsics=jnp.asarray(K)), jnp.asarray(pose),
+                       zbuffer_scale=20.0, use_pallas="off")
+        return out["rgb"], out["disparity"], out["coverage"]
+
+    _, f = jax.vjp(jax.jit(jfn), jnp.asarray(tex), jnp.asarray(disp))
+    want = f(tuple(jnp.asarray(x) for x in g))
+    tx = t(tex).requires_grad_()
+    dp = t(disp).requires_grad_()
+    out = render_forward(LDI(tx, dp, t(K)), t(pose), zbuffer_scale=20.0)
+    got = torch.autograd.grad((out["rgb"], out["disparity"],
+                               out["coverage"]), (tx, dp),
+                              tuple(t(x) for x in g))
+    # Coordinates ~1e-5 px apart (see test_render_matches_jax_lax_path),
+    # passed on through the bilinear fractions and exp(20 d): 1e-4 of the
+    # largest entry.
+    for name, a, b in zip(("textures", "disparities"), got, want):
+        scale = np.abs(np.asarray(b)).max()
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-4 * scale, err_msg=name)
