@@ -24,7 +24,9 @@ and no result line:
              batch 8 through LSIModel.predict_ldi -> LSIModel.render; K1's
              launch count must equal the number of renders.
 6. timing  — CUDA-event times after warm-up: predict, render and
-             end-to-end frames/s at b8 and b16; K1 vs plain per call.
+             end-to-end frames/s at b8 and b16; K1 vs plain per call at
+             random +-40 px and on the b8 render's own inputs (recorded
+             from one render).
 7. vjp     — SplatFn (forward K1, backward lsi_splat_vjp = K2 + K3)
              against the plain splat and autograd through it at the
              training splat's shape (16, 768, 768, 4) -> (256, 768), with
@@ -40,9 +42,11 @@ and no result line:
              num_scales=5, bf16, photo_mode="both"), 256x768, batch 16,
              two-plane synthetic scenes, params from seed 0: 4 steps
              through make_train_step; every kernel launched once a step.
-11. timing — train step ms and steps/s at b16 and b8; each new kernel vs
-             its plain version (and K1 at the training shape), in turns;
-             F.grid_sample as the gather's library yardstick.
+11. timing — train step ms and steps/s at b16 and b8; each kernel vs its
+             plain version in turns, at random +-40 px and, for K1 and
+             lsi_gather_fwd, on the b16 step's own inputs (recorded from
+             one step); F.grid_sample on the same inputs as the gather's
+             library yardstick.
 
 The line before the last two is {"kernels": [...]}, then the card's name
 and power limit as nvidia-smi prints them, and last
@@ -53,6 +57,7 @@ paths (phase 5 and phase 10, each counted from 0).
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -276,6 +281,111 @@ def with_tf32_off(fn):
          torch.backends.cudnn.allow_tf32) = old
 
 
+@contextlib.contextmanager
+def recording():
+    """Record the arguments (cloned) of every K1 and lsi_gather_fwd launch
+    made inside, as {"splat_fwd": [(values, coords, weights, out_hw,
+    snap)], "gather_fwd": [(image, coords)]}: the main path's own inputs.
+    The launches themselves run and count as usual."""
+    calls = {"splat_fwd": [], "gather_fwd": []}
+    launch_splat = splat_cuda._launch_splat
+    launch_gather = gather_cuda._launch_gather_fwd
+
+    def splat(values, coords, weights, out_hw, snap, tiling=None):
+        calls["splat_fwd"].append((values.clone(), coords.clone(),
+                                   weights.clone(), tuple(out_hw), snap))
+        return launch_splat(values, coords, weights, out_hw, snap, tiling)
+
+    def gather(image, coords, tiling=None):
+        calls["gather_fwd"].append((image.clone(), coords.clone()))
+        return launch_gather(image, coords, tiling)
+
+    splat_cuda._launch_splat, gather_cuda._launch_gather_fwd = splat, gather
+    try:
+        yield calls
+    finally:
+        splat_cuda._launch_splat = launch_splat
+        gather_cuda._launch_gather_fwd = launch_gather
+
+
+def k1_bound(values, coords, weights, out_hw):
+    """K1's bound: each input read and accum/wsum written once, against
+    2 (C+1) float32 operations per in-image corner."""
+    n, _, _, c = values.shape
+    return bound(nbytes(values, coords, weights)
+                 + 4 * n * out_hw[0] * out_hw[1] * (c + 1),
+                 2 * (c + 1) * corners_in_image(coords, *out_hw))
+
+
+def time_k1(label: str, smi: str, values, coords, weights, out_hw,
+            snap: bool = True, iters: int = 20):
+    """K1 against the plain splat on these inputs (values within
+    SPLAT_RTOL), then both timed in turns; logs and returns
+    (times, bound, max abs err)."""
+    ref = splat_bilinear(values, coords, weights, out_hw, snap=snap)
+    got = splat_cuda.splat(values, coords, weights, out_hw, snap=snap)
+    err = max(check_close(f"K1 {label} {name}", g, r, SPLAT_RTOL,
+                          SPLAT_ATOL_OF_MAX * r.abs().max().item())
+              for name, g, r in zip(("accum", "wsum"), got, ref))
+    del ref, got
+    t, readings = in_turns({
+        "plain": lambda: splat_bilinear(values, coords, weights, out_hw,
+                                        snap=snap),
+        "kernel": lambda: splat_cuda.splat(values, coords, weights, out_hw,
+                                           snap=snap)}, iters=iters)
+    bnd = k1_bound(values, coords, weights, out_hw)
+    log("timing", f"{smi} | K1 splat {label} {tuple(values.shape)} -> "
+        f"{tuple(out_hw)}: {1e3 * t['kernel']:.1f} us/call "
+        f"{readings['kernel']}, plain index_add_ {1e3 * t['plain']:.1f} "
+        f"us/call {readings['plain']}; bound {1e3 * bnd[0]:.1f} us "
+        f"({bnd[1]}); max abs err {err:.3e}")
+    return t, bnd, err
+
+
+def grid_sample_args(image, coords):
+    """F.grid_sample's inputs for the same gather: [image, 1] as NCHW (the
+    ones channel gives ``valid``) and the coordinates scaled to [-1, 1]
+    (align_corners=True)."""
+    _, hi, wi, _ = image.shape
+    img4 = torch.cat([image, torch.ones_like(image[..., :1])],
+                     -1).permute(0, 3, 1, 2).contiguous()
+    scale = torch.tensor([2.0 / (wi - 1), 2.0 / (hi - 1)],
+                         device=image.device)
+    return img4, (coords * scale - 1.0).contiguous()
+
+
+GS_KW = dict(mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
+def time_gather_fwd(label: str, smi: str, image, coords, iters: int = 20):
+    """lsi_gather_fwd against the plain gather on these inputs (1e-5 /
+    1e-6), both timed in turns, and F.grid_sample's forward on the same
+    inputs; logs and returns (times, bound, max abs err, grid_sample ms)."""
+    got = gather_cuda.gather_fwd(image, coords)
+    ref = bilinear_sample(image, coords)
+    err = max(check_close(f"gather {label} {name}", g, r, 1e-5, 1e-6)
+              for name, g, r in zip(("sampled", "valid"), got, ref))
+    t, readings = in_turns({
+        "plain": lambda: bilinear_sample(image, coords),
+        "kernel": lambda: gather_cuda.gather_fwd(image, coords)},
+        iters=iters)
+    img4, grid = grid_sample_args(image, coords)
+    lib = cuda_ms(lambda: torch.nn.functional.grid_sample(img4, grid,
+                                                          **GS_KW),
+                  iters=iters)
+    _, hi, wi, c = image.shape
+    bnd = bound(nbytes(image, coords, *got),
+                20 * coords[..., 0].numel()
+                + 2 * (c + 1) * corners_in_image(coords, hi, wi))
+    log("timing", f"{smi} | lsi_gather_fwd {label} image "
+        f"{tuple(image.shape)}, coords {tuple(coords.shape)}: "
+        f"{1e3 * t['kernel']:.1f} us/call {readings['kernel']}, plain "
+        f"bilinear_sample {1e3 * t['plain']:.1f} us/call; grid_sample "
+        f"forward {1e3 * lib:.1f} us; bound {1e3 * bnd[0]:.1f} us "
+        f"({bnd[1]}); max abs err {err:.3e}")
+    return t, bnd, err, lib
+
+
 KERNELS = {"splat_fwd": splat_cuda.splat, "splat_vjp": splat_cuda.splat_vjp,
            "gather_fwd": gather_cuda.gather_fwd,
            "gather_bwd_coords": gather_cuda.gather_bwd_coords}
@@ -485,6 +595,11 @@ def main() -> None:
         f"at {h}x{w}: {REQUESTS} requests of batch {BATCH} served; K1 "
         f"launches {serve_counts['splat_fwd']} = renders {REQUESTS}; covered "
         "pixels " + ", ".join(f"{c:.1%}" for c in covered))
+    # The render's own K1 inputs, recorded during one more render.
+    with recording() as serve_calls:
+        model.render(results[0][0], results[0][1])
+    if [len(v) for v in serve_calls.values()] != [1, 0]:
+        fail(f"one render recorded {serve_calls}")
     del results
 
     # 6. Serving timing.
@@ -502,19 +617,15 @@ def main() -> None:
             f"({1e3 * b / t_rend:.1f} frames/s), end-to-end {t_e2e:.3f} ms "
             f"({1e3 * b / t_e2e:.1f} frames/s)")
     del model
-    # K1 and plain in turns (plain, K1, K1, plain), at the b8 render shape.
-    k1, k1_times = in_turns({
-        "plain": lambda: splat_bilinear(values, coords, weights, OUT_HW),
-        "kernel": lambda: splat_cuda.splat(values, coords, weights, OUT_HW)},
-        iters=50)
-    k1_bound = bound(nbytes(values, coords, weights) + 4 * np.prod(
-        (SPLAT_SHAPE[0],) + OUT_HW) * (SPLAT_SHAPE[3] + 1),
-        (SPLAT_SHAPE[3] + 1) * 2 * corners_in_image(coords, *OUT_HW))
-    log("timing", f"{smi} | splat at {SPLAT_SHAPE} -> {OUT_HW}: K1 "
-        f"{1e3 * k1['kernel']:.1f} us/call {k1_times['kernel']}, plain "
-        f"index_add_ {1e3 * k1['plain']:.1f} us/call {k1_times['plain']}; "
-        f"bound {1e3 * k1_bound[0]:.1f} us ({k1_bound[1]})")
+    # K1 and plain in turns (plain, K1, K1, plain), at the b8 render shape
+    # with random +-40 px targets, then on the b8 render's own inputs.
+    k1, k1_bound, _ = time_k1("at random +-40 px", smi, values, coords,
+                              weights, OUT_HW, iters=50)
     del values, coords, weights
+    _, _, err = time_k1("on the b8 kitti_ldi2 render's own inputs", smi,
+                        *serve_calls["splat_fwd"][0], iters=50)
+    max_err = max(max_err, err)
+    del serve_calls
 
     # 7. SplatFn, forward (K1) and VJP (K2 + K3), at the training splat's
     # shape.
@@ -644,21 +755,21 @@ def main() -> None:
             f"{step_ms[bb]:.3f} ms ({1e3 / step_ms[bb]:.3f} steps/s, "
             f"{1e3 * bb / step_ms[bb]:.1f} examples/s); peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # The step's own K1 and gather inputs, recorded during one more step
+    # (after the timed steps, whose peak memory the copies would raise).
+    with recording() as train_calls:
+        step(state, batches[0])
+    if [len(v) for v in train_calls.values()] != [1, 1]:
+        fail(f"one train step recorded {train_calls}")
     del state, batches, stream
 
     kernels = {}
     splat_in_corners = corners_in_image(s_in[1], *OUT_HW)
-    out_px = n * OUT_HW[0] * OUT_HW[1]
-    # K1 at the training splat's shape.
-    t, readings = in_turns({
-        "plain": lambda: splat_bilinear(*s_in, OUT_HW),
-        "kernel": lambda: splat_cuda.splat(*s_in, OUT_HW)}, iters=20)
-    bnd = bound(nbytes(*s_in) + 4 * out_px * (c + 1),
-                2 * (c + 1) * splat_in_corners)
-    log("timing", f"{smi} | K1 splat at {TRAIN_SPLAT_SHAPE} -> {OUT_HW}: "
-        f"{1e3 * t['kernel']:.1f} us/call {readings['kernel']}, plain "
-        f"{1e3 * t['plain']:.1f} us/call; bound {1e3 * bnd[0]:.1f} us "
-        f"({bnd[1]})")
+    # K1 at the training splat's shape, then on the b16 step's own inputs.
+    time_k1("at random +-40 px", smi, *s_in, OUT_HW)
+    _, _, err = time_k1("on the b16 kitti_ldi3_b16 step's own inputs", smi,
+                        *train_calls["splat_fwd"][0])
+    max_err = max(max_err, err)
     # lsi_splat_vjp.
     t, readings = in_turns({
         "plain": lambda: splat_cuda._plain_vjp(*s_in, *s_cot, OUT_HW,
@@ -679,45 +790,37 @@ def main() -> None:
     del s_in, s_cot
 
     # The gather and its yardstick, F.grid_sample (bilinear, zeros,
-    # align_corners=True) on [image, 1], which gives sampled and valid.
+    # align_corners=True) on [image, 1], which gives sampled and valid: at
+    # random +-40 px, then on the b16 step's own inputs.
     image, gcoords = g_in
     ni, hi, wi, ci = image.shape
     g_corners = corners_in_image(gcoords, hi, wi)
-    sampled, valid = gather_cuda.gather_fwd(image, gcoords)
-    t, readings = in_turns({
-        "plain": lambda: bilinear_sample(image, gcoords),
-        "kernel": lambda: gather_cuda.gather_fwd(image, gcoords)}, iters=20)
-    img4 = torch.cat([image, torch.ones_like(image[..., :1])],
-                     -1).permute(0, 3, 1, 2).contiguous()
-    scale = torch.tensor([2.0 / (wi - 1), 2.0 / (hi - 1)], device=dev)
-    grid = (gcoords * scale - 1.0).contiguous()
-    gs = torch.nn.functional.grid_sample
-    gs_kw = dict(mode="bilinear", padding_mode="zeros", align_corners=True)
-    lib_fwd = cuda_ms(lambda: gs(img4, grid, **gs_kw), iters=20)
+    t, bnd, _, lib_fwd = time_gather_fwd("at random +-40 px", smi, image,
+                                         gcoords)
     kernels["gather_fwd"] = dict(
-        replaces="lsi_tpu/kernels/gather_pallas.py:75", t=t,
-        bound=bound(nbytes(image, gcoords, sampled, valid),
-                    20 * gcoords[..., 0].numel() + 2 * (ci + 1) * g_corners),
+        replaces="lsi_tpu/kernels/gather_pallas.py:76", t=t, bound=bnd,
         err=fwd_err, library=lib_fwd)
-    log("timing", f"{smi} | lsi_gather_fwd at image {tuple(image.shape)}, "
-        f"coords {tuple(gcoords.shape)}: {1e3 * t['kernel']:.1f} us/call "
-        f"{readings['kernel']}, plain bilinear_sample {1e3 * t['plain']:.1f} "
-        f"us/call; grid_sample forward {1e3 * lib_fwd:.1f} us; bound "
-        f"{1e3 * kernels['gather_fwd']['bound'][0]:.1f} us")
+    _, _, err, _ = time_gather_fwd(
+        "on the b16 kitti_ldi3_b16 step's own inputs", smi,
+        *train_calls["gather_fwd"][0])
+    kernels["gather_fwd"]["err"] = max(fwd_err, err)
+    del train_calls
+    img4, grid = grid_sample_args(image, gcoords)
+    gs = torch.nn.functional.grid_sample
     t, readings = in_turns({
         "plain": lambda: gather_cuda._plain_coords_vjp(image, gcoords,
                                                        *g_cot),
         "kernel": lambda: gather_cuda.gather_bwd_coords(image, gcoords,
                                                         *g_cot)}, iters=20)
     grid_r = grid.clone().requires_grad_()
-    gs_out = gs(img4, grid_r, **gs_kw)
+    gs_out = gs(img4, grid_r, **GS_KW)
     gs_cot = torch.randn_like(gs_out)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(gs_out, grid_r, gs_cot,
                                                   retain_graph=True),
                       iters=20)
     grid_r2 = grid.clone().requires_grad_()
     lib_both = cuda_ms(lambda: torch.autograd.grad(
-        gs(img4, grid_r2, **gs_kw), grid_r2, gs_cot), iters=20)
+        gs(img4, grid_r2, **GS_KW), grid_r2, gs_cot), iters=20)
     kernels["gather_bwd_coords"] = dict(
         replaces="lsi_tpu/kernels/gather_pallas.py:104", t=t,
         bound=bound(nbytes(image, gcoords, *g_cot) + nbytes(gcoords),

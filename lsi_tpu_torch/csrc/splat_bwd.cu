@@ -1,5 +1,5 @@
 // Splat backward and bilinear gather for Hopper (sm_90a): three entry
-// points over one per-pixel device function.
+// points; the two backward ones share one per-pixel device function.
 //
 // Replaces the TPU kernel lsi_tpu/kernels/splat_pallas.py:_splat_bwd_kernel
 // (launched by splat_pallas_bwd_sums; K2) in its two roles:
@@ -46,12 +46,32 @@
 // (N, Hs, 3, C1, Ws) intermediate (566 MB written and read back); not
 // saving SX/SY from the gather's forward avoids 302 MB of activations.
 //
-// Design, simple first: one thread per source pixel in a grid-stride loop,
-// the pixel's inputs and sums in registers, C a template parameter (1..8).
+// Design of lsi_splat_vjp and lsi_gather_bwd_coords, simple first: one
+// thread per source pixel in a grid-stride loop, the pixel's inputs and
+// sums in registers, C a template parameter (1..8); offsets are int64. An
+// output pointer may be null: that output is not written (the autograd
+// wrapper asks only for the gradients it needs).
+//
+// Design of lsi_gather_fwd, for Hopper. A first, simple form (the design
+// of the two kernels above) lost to one F.grid_sample call (201 vs 190 us
+// at the b16 inverse warp; PERF.md): two
+// scalar coordinate loads, an int64 division and int64 offsets per pixel,
+// one pixel in flight per thread. Now one CTA of 256 threads takes 256
+// columns of tile_rows (<= 4) source rows of one image: no division by
+// the image size, 32-bit offsets inside an image. The inverse warp folds
+// its L layers into rows r, r+H, r+2H, which sample the same image rows,
+// so the wrapper gives a tile those rows (row_stride = H) and their
+// corners share L1. A thread loads all its rows' coordinates (float2)
+// before it reads any corner, so up to 4 pixels' corner reads are in
+// flight at once. Two parts of the first design measured slower on the
+// inverse warp's own inputs and went (PERF.md): staging the image
+// rows a tile reaches in shared memory (cp.async; it won only on
+// scattered coordinates, which L1 serves badly) and writing the outputs
+// through shared memory as 16-byte stores. The per-pixel arithmetic is
+// simple form's, in the same order: results are bitwise the same.
+//
 // Bounds are tested in float BEFORE any float->int conversion
-// (coordinates reach +-1e6 where the projection clamps its denominator);
-// offsets are int64. An output pointer may be null: that output is not
-// written (the autograd wrapper asks only for the gradients it needs).
+// (coordinates reach +-1e6 where the projection clamps its denominator).
 //
 // Plain C interface (loaded with ctypes): each entry point launches on the
 // calling thread's current device and returns cudaGetLastError() after
@@ -64,6 +84,7 @@ namespace {
 
 constexpr float kMinFraction = 1e-4f;  // ops/splat.py MIN_FRACTION
 constexpr int kThreads = 256;
+constexpr int kMaxTileRows = 4;  // lsi_gather_fwd's rows per block, at most
 
 __device__ __forceinline__ float snap_fraction(float f) {
   if (f < kMinFraction) return 0.0f;
@@ -186,36 +207,76 @@ __global__ void splat_vjp_kernel(
   }
 }
 
+// The gather's forward, tiled (see "lsi_gather_fwd" in the header note).
+// Block (blockIdx.x, blockIdx.y, blockIdx.z = image) takes columns
+// [blockIdx.x * kThreads, + kThreads) of tile_rows source rows spaced
+// row_stride apart: rows base + j * row_stride, j < tile_rows, with
+// base = (blockIdx.y / row_stride) * row_stride * tile_rows +
+// blockIdx.y % row_stride (lsi_tpu_torch/kernels/gather_cuda.py:
+// gather_tile_rows is the same map).
+__device__ __forceinline__ int gather_tile_row(int group, int j,
+                                               int row_stride,
+                                               int tile_rows) {
+  return (group / row_stride) * row_stride * tile_rows + group % row_stride +
+         j * row_stride;
+}
+
 template <int C>
-__global__ void gather_fwd_kernel(const float* __restrict__ image,
-                                  const float* __restrict__ coords,
-                                  float* __restrict__ sampled,
-                                  float* __restrict__ valid, int64_t total,
-                                  int64_t pixels_per_image, int64_t img_h,
-                                  int64_t img_w) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < total; i += stride) {
-    const Corners c =
-        corners<false>(coords[2 * i], coords[2 * i + 1],
-                       (i / pixels_per_image) * img_h * img_w, img_h, img_w);
+__global__ void __launch_bounds__(kThreads)
+    gather_fwd_kernel(const float* __restrict__ image,
+                      const float* __restrict__ coords,
+                      float* __restrict__ sampled, float* __restrict__ valid,
+                      int src_h, int src_w, int img_h, int img_w,
+                      int tile_rows, int row_stride) {
+  const int col = blockIdx.x * kThreads + threadIdx.x;
+  const int64_t src_base = static_cast<int64_t>(blockIdx.z) * src_h * src_w;
+  const float* img =
+      image + static_cast<int64_t>(blockIdx.z) * img_h * img_w * C;
+  const float2* xy = reinterpret_cast<const float2*>(coords) + src_base;
+
+  // The tile's coordinates, all loaded before any corner is read.
+  float2 q[kMaxTileRows];
+  int p[kMaxTileRows];
+  bool on[kMaxTileRows];
+#pragma unroll
+  for (int j = 0; j < kMaxTileRows; ++j) {
+    const int r = gather_tile_row(blockIdx.y, j, row_stride, tile_rows);
+    on[j] = j < tile_rows && r < src_h && col < src_w;
+    p[j] = r * src_w + col;
+    q[j] = on[j] ? xy[p[j]] : make_float2(0.0f, 0.0f);
+  }
+
+#pragma unroll
+  for (int j = 0; j < kMaxTileRows; ++j) {
+    if (!on[j]) continue;
+    const float x0 = floorf(q[j].x);
+    const float y0 = floorf(q[j].y);
+    const float fx = q[j].x - x0;
+    const float fy = q[j].y - y0;
+    const float frac[4] = {(1.0f - fx) * (1.0f - fy), fx * (1.0f - fy),
+                           (1.0f - fx) * fy, fx * fy};
     float acc[C];
     float mass = 0.0f;
 #pragma unroll
     for (int ch = 0; ch < C; ++ch) acc[ch] = 0.0f;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      if (c.off[k] < 0) continue;
-#pragma unroll
-      for (int ch = 0; ch < C; ++ch) {
-        acc[ch] += image[c.off[k] * C + ch] * c.frac[k];
+      const float xf = x0 + (k & 1);
+      const float yf = y0 + (k >> 1);
+      // NaN coordinates fail every comparison: all corners outside.
+      if (!(xf >= 0.0f && xf <= static_cast<float>(img_w - 1) &&
+            yf >= 0.0f && yf <= static_cast<float>(img_h - 1))) {
+        continue;
       }
-      mass += c.frac[k];
+      const float* px = &img[(static_cast<int>(yf) * img_w +
+                              static_cast<int>(xf)) * C];
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) acc[ch] += px[ch] * frac[k];
+      mass += frac[k];
     }
 #pragma unroll
-    for (int ch = 0; ch < C; ++ch) sampled[i * C + ch] = acc[ch];
-    valid[i] = mass;
+    for (int ch = 0; ch < C; ++ch) sampled[(src_base + p[j]) * C + ch] = acc[ch];
+    valid[src_base + p[j]] = mass;
   }
 }
 
@@ -254,7 +315,7 @@ __global__ void gather_bwd_coords_kernel(
 }
 
 // Grid for a grid-stride loop over `total` pixels: at most 16 blocks of
-// kThreads per SM (as K1).
+// kThreads per SM.
 cudaError_t grid_for(int64_t total, int* blocks) {
   int device = 0;
   int sms = 0;
@@ -314,17 +375,44 @@ extern "C" int lsi_splat_vjp(const void* values, const void* coords,
 }
 
 // The gather's forward (K4). image (n, img_h, img_w, channels), coords
-// (n, src_h, src_w, 2) -> sampled (n, src_h, src_w, channels), valid (.., 1).
+// (n, src_h, src_w, 2), 8-byte aligned -> sampled (n, src_h, src_w,
+// channels), valid (.., 1). Grid (ceil(src_w / 256), row_groups, n) of
+// 256 threads; tile_rows (<= 4) rows spaced row_stride apart per block.
 extern "C" int lsi_gather_fwd(const void* image, const void* coords,
                               void* sampled, void* valid, int64_t n,
                               int64_t src_h, int64_t src_w, int channels,
-                              int64_t img_h, int64_t img_w, void* stream) {
-  const int64_t ppi = src_h * src_w;
-  LSI_LAUNCH_BY_CHANNELS(
-      gather_fwd_kernel, channels, n * ppi, stream,
-      static_cast<const float*>(image), static_cast<const float*>(coords),
-      static_cast<float*>(sampled), static_cast<float*>(valid), n * ppi, ppi,
-      img_h, img_w);
+                              int64_t img_h, int64_t img_w, int row_groups,
+                              int tile_rows, int row_stride, void* stream) {
+  if (n * src_h * src_w == 0) return 0;
+  if (tile_rows <= 0 || tile_rows > kMaxTileRows || row_stride <= 0 ||
+      row_groups <= 0 || channels < 1 || channels > 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((src_w + kThreads - 1) / kThreads, row_groups, n);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* im = static_cast<const float*>(image);
+  const auto* c = static_cast<const float*>(coords);
+  auto* s = static_cast<float*>(sampled);
+  auto* v = static_cast<float*>(valid);
+  switch (channels) {
+#define LSI_GATHER_CASE(CH)                                                  \
+  case CH:                                                                   \
+    gather_fwd_kernel<CH><<<grid, kThreads, 0, st>>>(                        \
+        im, c, s, v, static_cast<int>(src_h), static_cast<int>(src_w),       \
+        static_cast<int>(img_h), static_cast<int>(img_w), tile_rows,         \
+        row_stride);                                                         \
+    break;
+    LSI_GATHER_CASE(1)
+    LSI_GATHER_CASE(2)
+    LSI_GATHER_CASE(3)
+    LSI_GATHER_CASE(4)
+    LSI_GATHER_CASE(5)
+    LSI_GATHER_CASE(6)
+    LSI_GATHER_CASE(7)
+    LSI_GATHER_CASE(8)
+#undef LSI_GATHER_CASE
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The gather's coordinate cotangent (K4 backward). g_sampled shaped as

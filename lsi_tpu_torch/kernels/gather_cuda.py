@@ -25,11 +25,15 @@ differentiate through :class:`GatherFn`.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from lsi_tpu_torch.kernels import build
-from lsi_tpu_torch.kernels.splat_cuda import (check_device, check_no_grad,
-                                              check_tensors, splat)
+from lsi_tpu_torch.kernels.splat_cuda import (THREADS, Tiling, aligned,
+                                              check_device, check_no_grad,
+                                              check_tensors, check_tiling,
+                                              splat)
 from lsi_tpu_torch.ops.gather import bilinear_sample
 
 
@@ -44,6 +48,53 @@ def _check(image: torch.Tensor, coords: torch.Tensor) -> None:
     if not 1 <= image.shape[-1] <= 8:
         raise ValueError(f"the kernel takes 1..8 channels, got {image.shape[-1]}")
     check_tensors({"image": image, "coords": coords}, image.device)
+
+
+#: Rows per block of ``lsi_gather_fwd`` at most (``kMaxTileRows``).
+MAX_TILE_ROWS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherTiling(Tiling):
+    """:class:`Tiling` of ``lsi_gather_fwd``: each block's ``tile[0]`` rows
+    lie ``row_stride`` apart (see :func:`gather_tile_rows`)."""
+    row_stride: int = 1
+
+
+def gather_tiling(image_shape, coords_shape, *,
+                  max_tile_rows: int = MAX_TILE_ROWS) -> GatherTiling:
+    """``lsi_gather_fwd``'s launch for an (N, Hi, Wi, C) image sampled at
+    (N, Hs, Ws, 2) coordinates.
+
+    A block takes ``THREADS`` columns. Where the coordinates fold L <=
+    ``max_tile_rows`` layers of Hi rows (Hs = L * Hi, the inverse warp),
+    its rows are one row of each layer (they sample the same image rows);
+    otherwise ``max_tile_rows`` neighbouring rows.
+    """
+    n, hi, wi, c = (int(v) for v in image_shape)
+    _, hs, ws, _ = (int(v) for v in coords_shape)
+    if not 1 <= max_tile_rows <= MAX_TILE_ROWS:
+        raise ValueError(f"max_tile_rows must be 1..{MAX_TILE_ROWS}")
+    if max(hs * ws * max(c, 2), hi * wi * c) >= 2**31:
+        raise ValueError("an image's offsets must fit 32 bits")
+    layers = hs // hi
+    if hs % hi == 0 and 1 < layers <= max_tile_rows:
+        row_stride, tile_rows = hi, layers
+    else:
+        row_stride, tile_rows = 1, min(max_tile_rows, hs)
+    groups = -(-hs // (row_stride * tile_rows)) * row_stride
+    return check_tiling(GatherTiling(
+        block=(THREADS, 1), tile=(tile_rows, THREADS),
+        grid=(-(-ws // THREADS), groups, n), smem_bytes=0, vec4=False,
+        row_stride=row_stride))
+
+
+def gather_tile_rows(tiling: GatherTiling, group: int, src_h: int):
+    """The source rows of the blocks at ``blockIdx.y == group`` (the map
+    ``gather_tile_row`` of ``csrc/splat_bwd.cu``)."""
+    s, t = tiling.row_stride, tiling.tile[0]
+    base = group // s * s * t + group % s
+    return [r for r in range(base, base + s * t, s) if r < src_h]
 
 
 def _sizes(image: torch.Tensor, coords: torch.Tensor):
@@ -67,14 +118,24 @@ def gather_fwd(image: torch.Tensor, coords: torch.Tensor):
     if not check_device(image.device):
         return bilinear_sample(image, coords)
 
+    return _launch_gather_fwd(image, coords)
+
+
+def _launch_gather_fwd(image, coords, tiling=None):
+    """Launch ``lsi_gather_fwd`` on CUDA tensors with ``tiling`` (default:
+    :func:`gather_tiling`'s choice) and count the launch."""
     n, hs, ws, c, hi, wi = _sizes(image, coords)
+    coords = aligned(coords, 8)  # read as float2
     sampled = torch.empty((n, hs, ws, c), dtype=torch.float32,
                           device=image.device)
     valid = torch.empty((n, hs, ws, 1), dtype=torch.float32,
                         device=image.device)
+    if tiling is None:
+        tiling = gather_tiling(image.shape, coords.shape)
     build.launch("splat_bwd", "lsi_gather_fwd", image.device,
                  image.data_ptr(), coords.data_ptr(), sampled.data_ptr(),
-                 valid.data_ptr(), n, hs, ws, c, hi, wi)
+                 valid.data_ptr(), n, hs, ws, c, hi, wi, tiling.grid[1],
+                 tiling.tile[0], tiling.row_stride)
     gather_fwd.launches += 1
     return sampled, valid
 

@@ -21,6 +21,8 @@ require grad raises: differentiate through :class:`SplatFn`.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from lsi_tpu_torch.kernels import build
@@ -52,6 +54,66 @@ def check_device(device: torch.device) -> bool:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"the kernels run on cpu or cuda, not {device}")
     return device.type == "cuda"
+
+
+def aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``t``, or a fresh copy of it when its data is not ``nbytes``-aligned
+    (a view into another tensor's storage may start anywhere)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
+#: Threads per block of every tiled kernel (``kThreads`` in the sources).
+THREADS = 256
+#: Shared memory a block of an H100 may use (227 KB).
+MAX_SMEM_BYTES = 232_448
+#: CUDA's grid limits for blockIdx.x, .y and .z.
+MAX_GRID = (2**31 - 1, 65_535, 65_535)
+
+
+@dataclasses.dataclass(frozen=True)
+class Tiling:
+    """A tiled kernel's launch: ``block`` (x, y) threads, ``tile`` (rows,
+    columns) of source pixels per block, ``grid`` (x, y, z) blocks,
+    ``smem_bytes`` of dynamic shared memory, ``vec4`` the float4 path."""
+    block: tuple
+    tile: tuple
+    grid: tuple
+    smem_bytes: int
+    vec4: bool
+
+
+def check_tiling(t: Tiling) -> Tiling:
+    """Raise where ``t`` breaks CUDA's limits; return it."""
+    if t.block[0] * t.block[1] != THREADS:
+        raise ValueError(f"{t.block} is not {THREADS} threads")
+    if not 0 <= t.smem_bytes <= MAX_SMEM_BYTES:
+        raise ValueError(f"{t.smem_bytes} B of shared memory")
+    if any(not 1 <= g <= m for g, m in zip(t.grid, MAX_GRID)):
+        raise ValueError(f"grid {t.grid} beyond CUDA's limits {MAX_GRID}")
+    return t
+
+
+def splat_tiling(values_shape, out_hw, aligned16: bool, *,
+                 block_x: int = 128, rows_per_thread: int = 2,
+                 smem_bytes: int = 32 * 1024) -> Tiling:
+    """K1's launch for values (N, Hs, Ws, C) splatted into ``out_hw``.
+
+    Each block takes ``block_x`` columns by ``THREADS // block_x *
+    rows_per_thread`` source rows of one image and accumulates in
+    ``smem_bytes`` of shared memory when its targets' bounding box fits
+    (``csrc/splat_fwd.cu``). ``aligned16``: values and accum start on a
+    16-byte boundary; with C = 4 that takes the float4 path.
+    """
+    n, hs, ws, c = (int(v) for v in values_shape)
+    out_h, out_w = (int(v) for v in out_hw)
+    if max(hs * ws * max(c, 2), out_h * out_w * (c + 1)) >= 2**31:
+        raise ValueError("an image's offsets must fit 32 bits")
+    block_y = THREADS // block_x
+    tile_h = block_y * rows_per_thread
+    return check_tiling(Tiling(
+        block=(block_x, block_y), tile=(tile_h, block_x),
+        grid=(-(-ws // block_x), -(-hs // tile_h), n),
+        smem_bytes=smem_bytes, vec4=c == 4 and aligned16))
 
 
 def _check(values: torch.Tensor, coords: torch.Tensor,
@@ -92,16 +154,27 @@ def splat(values: torch.Tensor, coords: torch.Tensor, weights: torch.Tensor,
     if not check_device(values.device):
         return splat_bilinear(values, coords, weights, out_hw, snap=snap)
 
+    return _launch_splat(values, coords, weights, out_hw, snap)
+
+
+def _launch_splat(values, coords, weights, out_hw, snap, tiling=None):
+    """Launch K1 on CUDA tensors with ``tiling`` (default:
+    :func:`splat_tiling`'s choice) and count the launch."""
     n, hs, ws, c = values.shape
     out_h, out_w = (int(v) for v in out_hw)
+    coords = aligned(coords, 8)  # read as float2
     accum = torch.zeros((n, out_h, out_w, c), dtype=torch.float32,
                         device=values.device)
     wsum = torch.zeros((n, out_h, out_w, 1), dtype=torch.float32,
                        device=values.device)
+    if tiling is None:
+        tiling = splat_tiling(values.shape, out_hw, aligned16=all(
+            t.data_ptr() % 16 == 0 for t in (values, accum)))
     build.launch("splat_fwd", "lsi_splat_fwd", values.device,
                  values.data_ptr(), coords.data_ptr(), weights.data_ptr(),
                  accum.data_ptr(), wsum.data_ptr(), n, hs, ws, c, out_h,
-                 out_w, int(snap))
+                 out_w, int(snap), tiling.block[0], tiling.tile[0],
+                 tiling.smem_bytes, int(tiling.vec4))
     splat.launches += 1
     return accum, wsum
 

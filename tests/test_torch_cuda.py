@@ -77,6 +77,114 @@ def test_kernel_matches_plain(cuda, kind, c):
     torch.testing.assert_close(ws, ref[1], rtol=1e-5, atol=1e-5)
 
 
+# The coordinate kinds the tiled kernels must handle: targets that stay
+# near the source (a render), random +-40 px shifts, a vertical spread of
+# more than 200 rows (a tile's box overflows shared memory: the global
+# path), every corner off the image, and +-1e6 / inf / nan.
+COORD_KINDS = ["coherent", "random40", "overflow", "off_image", "nonfinite"]
+# (N, Hs, Ws) sources folding two layers of (Ho, Wo) targets; ragged sizes.
+SIZES = {"ragged": (2, 26, 77, (13, 77)), "even": (2, 64, 192, (32, 192))}
+
+
+def tiled_coords(rng, n, hs, ws, out_hw, kind):
+    """(n, hs, ws, 2) coordinates into an out_hw image, of one kind."""
+    ho, wo = out_hw
+    x = (np.arange(ws, dtype=np.float32)[None, None, :]
+         + np.zeros((n, hs, 1), np.float32))
+    y = (np.arange(hs, dtype=np.float32) % ho)[None, :, None] + 0 * x
+    if kind == "coherent":
+        x += 3.0 + rng.uniform(-0.6, 0.6, x.shape)
+        y += rng.uniform(-0.6, 0.6, y.shape)
+    elif kind == "random40":
+        x += rng.uniform(-40, 40, x.shape)
+        y += rng.uniform(-3, 3, y.shape)
+    elif kind == "overflow":
+        y = rng.uniform(-1, ho, y.shape)
+        x += rng.uniform(-2, 2, x.shape)
+    elif kind == "off_image":
+        x += np.where(rng.uniform(size=x.shape) < 0.5, -wo - 5.0, wo + 5.0)
+    else:
+        x += rng.uniform(-2, 2, x.shape)
+        y += rng.uniform(-2, 2, y.shape)
+        x[rng.uniform(size=x.shape) < 0.1] = 1e6
+        y[rng.uniform(size=y.shape) < 0.1] = -1e6
+        x[:, 0, :3] = [np.nan, np.inf, -np.inf]
+        y[:, 1, :2] = [np.nan, np.inf]
+    return np.stack([x, y], -1).astype(np.float32)
+
+
+def splat_case(seed, c, size, kind):
+    n, hs, ws, out_hw = SIZES[size]
+    if kind == "overflow":
+        out_hw = (260, ws)
+    rng = np.random.default_rng(seed)
+    values = rng.uniform(size=(n, hs, ws, c)).astype(np.float32)
+    weights = rng.uniform(0.0, 1.0, (n, hs, ws, 1)).astype(np.float32)
+    return (values, tiled_coords(rng, n, hs, ws, out_hw, kind), weights,
+            out_hw)
+
+
+def assert_splat_close(got, ref):
+    """K1's tolerance: rtol 1e-5, atol 1e-5 * max|ref| (float32 atomics
+    sum in another order)."""
+    for g, r in zip(got, ref):
+        atol = 1e-5 * max(float(r.abs().max()), 1e-30)
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
+@pytest.mark.parametrize("kind", COORD_KINDS)
+@pytest.mark.parametrize("snap", [True, False])
+@pytest.mark.parametrize("c", range(1, 9))
+def test_tiled_splat_matches_plain(cuda, c, snap, kind, size):
+    """K1 (shared-memory and global paths) against the plain splat."""
+    *arrays, out_hw = splat_case(10 + c, c, size, kind)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    got = splat_cuda.splat(*args, out_hw, snap=snap)
+    ref = splat_bilinear(*args, out_hw, snap=snap)
+    torch.cuda.synchronize()
+    assert_splat_close(got, ref)
+    if kind == "off_image":
+        assert float(got[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tiling", [
+    dict(smem_bytes=0),             # every block on the global path
+    dict(smem_bytes=200 * 1024),    # above 48 KB: the opt-in attribute
+    dict(block_x=32, rows_per_thread=2),
+    dict(block_x=128),
+    dict(block_x=256, rows_per_thread=3),
+])
+@pytest.mark.parametrize("c", [3, 4])
+def test_splat_tilings_agree(cuda, c, tiling):
+    """Every launch shape the wrapper can choose gives the same splat,
+    with and without the float4 path."""
+    *arrays, out_hw = splat_case(20, c, "ragged", "random40")
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    ref = splat_bilinear(*args, out_hw)
+    for aligned16 in (True, False):
+        t = splat_cuda.splat_tiling(args[0].shape, out_hw,
+                                    aligned16=aligned16, **tiling)
+        got = splat_cuda._launch_splat(*args, out_hw, True, t)
+        torch.cuda.synchronize()
+        assert_splat_close(got, ref)
+
+
+def test_splat_takes_misaligned_views(cuda):
+    *arrays, out_hw = splat_case(21, 4, "ragged", "coherent")
+    values, coords, weights = (torch.from_numpy(a).to(cuda) for a in arrays)
+    flat = torch.empty(coords.numel() + 1, device=cuda)
+    shifted = flat[1:].view(coords.shape)  # 4 bytes off an 8-byte boundary
+    shifted.copy_(coords)
+    vflat = torch.empty(values.numel() + 1, device=cuda)
+    vshifted = vflat[1:].view(values.shape)
+    vshifted.copy_(values)
+    got = splat_cuda.splat(vshifted, shifted, weights, out_hw)
+    ref = splat_bilinear(values, coords, weights, out_hw)
+    torch.cuda.synchronize()
+    assert_splat_close(got, ref)
+
+
 def test_kernel_counts_launches_and_rejects_bad_inputs(cuda):
     args = [torch.from_numpy(a).to(cuda)
             for a in splat_inputs(1, 1, 16, 128, 4, (16, 128), "random")]
@@ -223,6 +331,69 @@ def test_gather_fn_matches_plain(cuda, c):
         # d_image sums float32 atomics; d_coords 4 corner terms: 1e-5.
         atol = 1e-5 * float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+def gather_case(seed, c, size, kind):
+    """A (n, Ho, Wo, c) image and coordinates of ``kind`` folding two
+    layers of it (the inverse warp's layout)."""
+    n, hs, ws, (hi, wi) = SIZES[size]
+    if kind == "overflow":
+        hi, hs = 260, 520
+    rng = np.random.default_rng(seed)
+    image = rng.uniform(size=(n, hi, wi, c)).astype(np.float32)
+    return image, tiled_coords(rng, n, hs, ws, (hi, wi), kind)
+
+
+def assert_gather_close(got, ref, coords):
+    """sampled/valid at 1e-5 / 1e-6; where a coordinate is not finite the
+    plain gather gives nan (nan * 0), the kernel drops the pixel: 0."""
+    finite = torch.isfinite(coords).all(-1, keepdim=True)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(torch.where(finite, g, 0.0),
+                                   torch.where(finite, r, 0.0), rtol=1e-5,
+                                   atol=1e-6)
+        assert float(torch.where(finite, 0.0, g).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
+@pytest.mark.parametrize("kind", COORD_KINDS)
+@pytest.mark.parametrize("c", range(1, 9))
+def test_tiled_gather_matches_plain(cuda, c, kind, size):
+    """lsi_gather_fwd against the plain gather."""
+    image, coords = (torch.from_numpy(a).to(cuda)
+                     for a in gather_case(30 + c, c, size, kind))
+    got = gather_cuda.gather_fwd(image, coords)
+    ref = bilinear_sample(image, coords)
+    torch.cuda.synchronize()
+    assert_gather_close(got, ref, coords)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3])
+@pytest.mark.parametrize("kind", COORD_KINDS)
+def test_gather_tilings_are_bitwise_equal(cuda, kind, rows):
+    """Any rows per block: the same arithmetic in the same order."""
+    image, coords = (torch.from_numpy(a).to(cuda)
+                     for a in gather_case(40, 3, "even", kind))
+    ref = gather_cuda.gather_fwd(image, coords)
+    t = gather_cuda.gather_tiling(image.shape, coords.shape,
+                                  max_tile_rows=rows)
+    got = gather_cuda._launch_gather_fwd(image, coords, t)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_gather_bwd_coords_is_bitwise_repeatable(cuda):
+    image, coords = (torch.from_numpy(a).to(cuda)
+                     for a in gather_case(41, 3, "even", "nonfinite"))
+    cots = cotangents_like(11, torch.empty(coords.shape[:-1] + (3,),
+                                           device=cuda),
+                           torch.empty(coords.shape[:-1] + (1,),
+                                       device=cuda))
+    first = gather_cuda.gather_bwd_coords(image, coords, *cots)
+    second = gather_cuda.gather_bwd_coords(image, coords, *cots)
+    assert torch.equal(first, second)  # a gather with no atomics
+    assert torch.isfinite(first).all()
 
 
 def test_gather_kernels_count_launches(cuda):
