@@ -3,7 +3,7 @@ batch stream.
 
 PyTorch counterpart of ``lsi_tpu/data/pipeline.py`` (``Batch``,
 ``decode_batch``, the synthetic example and batch streams). Not ported
-yet (ROADMAP Queue 1, M7): the KITTI and SYNTHIA readers, materialized
+yet (ROADMAP Queue 1, item 4): the KITTI and SYNTHIA readers, materialized
 datasets (``data.root``) and the background prefetch thread; the stream
 here builds each batch on the calling thread.
 """
@@ -53,7 +53,7 @@ def _example_stream(cfg: DataConfig, seed: int, repeat: bool):
         raise NotImplementedError(
             f"dataset {cfg.dataset!r} (root {cfg.root!r}) is not ported yet: "
             "the port streams generated synthetic scenes only (ROADMAP "
-            "Queue 1, M7)")
+            "Queue 1, item 4)")
     # The val split is a disjoint seed range.
     if cfg.split == "val":
         seed = seed + 0x5EED_0FF5

@@ -1,9 +1,11 @@
-"""Training losses: view synthesis, smoothness, depth supervision.
+"""Training losses: view synthesis, smoothness, depth supervision and
+cross-view depth consistency.
 
-PyTorch counterpart of ``lsi_tpu/losses/losses.py`` (the single-prediction
-losses): the inverse-warp photometric loss with the per-pixel min over
-layers, the splat-composite photometric loss, edge-aware disparity
-smoothness, depth supervision and ``total_loss``.
+PyTorch counterpart of ``lsi_tpu/losses/losses.py``: the inverse-warp
+photometric loss with the per-pixel min over layers, the splat-composite
+photometric loss, edge-aware disparity smoothness, depth supervision,
+``total_loss``, and the two-prediction terms ``depth_consistency`` and
+``total_loss_bidirectional``.
 
 Gradients match JAX's where values tie: ``amin``/``amax`` split the
 gradient equally among equal entries, as ``jnp.min``/``jnp.max`` do
@@ -11,20 +13,24 @@ gradient equally among equal entries, as ``jnp.min``/``jnp.max`` do
 invalid layer carries the same large error as every other invalid layer,
 and ``valid`` is 1.0 in every layer that lands inside the image.
 
-Not ported yet (raise ``NotImplementedError``; ROADMAP Queue 1):
-``candidate_radius > 0``, ``ssim_weight > 0`` and the two-prediction
-losses. ``photo_layer0_weight`` is a refuted knob and is not ported.
+Not ported yet (raise ``NotImplementedError``): ``ssim_weight > 0`` and
+``candidate_radius > 0`` (ROADMAP Queue 1, items 1 and 2). The refuted
+knobs ``photo_layer0_weight``, ``consistency_ema_teacher`` and
+``consistency_stop_step`` are not ported (ROADMAP "Do not port").
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
 
 from lsi_tpu_torch.config import LossConfig, RenderConfig
+from lsi_tpu_torch.evaluation.occlusion import disocclusion_mask
 from lsi_tpu_torch.geometry.ldi import (LDI, gather_target_per_layer_folded,
                                         render_forward)
+from lsi_tpu_torch.geometry.transforms import invert_pose
 from lsi_tpu_torch.utils.helpers import divide_safe
 
 # Error given to samples that fell outside the target view, so the min over
@@ -36,18 +42,20 @@ def check_loss_config(loss_cfg: LossConfig) -> None:
     """Reject the loss options the port does not implement."""
     if loss_cfg.photo_mode not in ("inverse_warp", "splat", "both"):
         raise ValueError(f"unknown photo_mode {loss_cfg.photo_mode!r}")
+    if loss_cfg.ssim_weight > 0:
+        raise NotImplementedError(
+            "ssim_weight > 0 in the splat loss is not ported yet (ROADMAP "
+            "Queue 1, item 1; evaluation.metrics.ssim exists)")
     if loss_cfg.candidate_radius > 0:
         raise NotImplementedError(
             "candidate_radius > 0 is not ported yet (ROADMAP Queue 1, "
-            "M6 'candidate_radius')")
-    if loss_cfg.ssim_weight > 0:
-        raise NotImplementedError(
-            "ssim_weight > 0 is not ported yet: it needs "
-            "evaluation/metrics.ssim (ROADMAP Queue 1, M6 'ssim')")
-    if loss_cfg.photo_layer0_weight > 0:
-        raise NotImplementedError(
-            "photo_layer0_weight is a refuted knob and is not ported "
-            "(ROADMAP 'Do not port')")
+            "item 2)")
+    for knob in ("photo_layer0_weight", "consistency_ema_teacher",
+                 "consistency_stop_step"):
+        if getattr(loss_cfg, knob):
+            raise NotImplementedError(
+                f"{knob} is a refuted knob and is not ported (ROADMAP "
+                "'Do not port')")
 
 
 def _charbonnier(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
@@ -142,6 +150,56 @@ def disparity_smoothness(ldi: LDI, edge_aware: bool = True,
     return dx.mean() + dy.mean()
 
 
+def depth_consistency(ldi_src: LDI, ldi_trg: LDI,
+                      pose_src2trg: torch.Tensor,
+                      render_cfg: RenderConfig,
+                      K_trg: Optional[torch.Tensor] = None,
+                      stop_target: bool = False,
+                      disocc_only: bool = False,
+                      visible_only: bool = False,
+                      deep_only: bool = False) -> torch.Tensor:
+    """Cross-view depth consistency, one direction: splat the source LDI's
+    disparity into the target view and penalise its disagreement with the
+    target prediction's layer-0 disparity where the render has weight.
+
+    Args:
+      stop_target: the target's layer-0 disparity is a constant
+        (a pseudo-label), so the term cannot be met by both predictions
+        drifting together.
+      disocc_only: only the target pixels the source's layer 0 does not
+        cover (the disoccluded set; ``visible_only`` is its complement).
+        The mask is a constant, computed under ``no_grad``.
+      deep_only: the source's layer-0 disparity is detached before the
+        splat, so the gradient reaches only the deep layers (the textures
+        are not detached).
+
+    The rendered disparity is renormalised with a floor of 1e-30 on the
+    splat weight: disoccluded pixels carry only deep-layer weight, about
+    ``exp(-scale)`` after the soft-z shift, and the VJP's division by that
+    weight must stay inside float32.
+    """
+    if deep_only:
+        d = ldi_src.disparities
+        ldi_src = dataclasses.replace(
+            ldi_src, disparities=torch.cat([d[:, :1].detach(), d[:, 1:]], 1))
+    out_hw = tuple(ldi_trg.disparities.shape[2:4])
+    out = render_forward(ldi_src, pose_src2trg, K_trg=K_trg, out_hw=out_hw,
+                         zbuffer_scale=render_cfg.zbuffer_scale)
+    wsum = out["coverage"]
+    disp_num = out["disparity"] * wsum  # the accumulated disparity mass
+    rendered_disp = divide_safe(disp_num, wsum, eps=1e-30)
+    mask = (wsum > 1e-30).float()
+    if disocc_only or visible_only:
+        disocc = disocclusion_mask(ldi_src, pose_src2trg, out_hw=out_hw,
+                                   zbuffer_scale=render_cfg.zbuffer_scale)
+        mask = mask * (disocc if disocc_only else 1.0 - disocc)
+    target = ldi_trg.disparities[:, 0]
+    if stop_target:
+        target = target.detach()
+    err = _charbonnier(rendered_disp - target)
+    return divide_safe((err * mask).sum(), mask.sum())
+
+
 def depth_supervision(ldi: LDI, gt_disparity: torch.Tensor,
                       valid: torch.Tensor) -> torch.Tensor:
     """Charbonnier on layer-0 disparity where ground truth exists."""
@@ -191,4 +249,58 @@ def total_loss(ldi: LDI, target_image: torch.Tensor,
             * depth_supervision(ldi, gt_disparity, gt_valid))
     parts["total"] = sum(parts.values())
     parts.update(diags)
+    return parts
+
+
+def total_loss_bidirectional(ldi_src: LDI, ldi_trg: LDI,
+                             src_image: torch.Tensor,
+                             trg_image: torch.Tensor,
+                             pose_src2trg: torch.Tensor,
+                             loss_cfg: LossConfig,
+                             render_cfg: RenderConfig,
+                             gt_disparity: Optional[torch.Tensor] = None,
+                             gt_valid: Optional[torch.Tensor] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """The two-prediction loss (an LDI predicted from each view):
+
+    * :func:`total_loss` of the source prediction against the target;
+    * with ``symmetric``, the same of the target prediction against the
+      source (no depth supervision: its ground truth is the source's),
+      its parts suffixed ``_rev``;
+    * with ``consistency_weight``, :func:`depth_consistency` in both
+      directions with the configured flags (``depth_consistency``);
+    * with ``consistency_anchor_weight``, the ``visible_only`` consistency
+      in both directions (``depth_anchor``).
+
+    Diagnostics ride along un-summed, as in :func:`total_loss`.
+    """
+    parts = total_loss(ldi_src, trg_image, pose_src2trg, loss_cfg,
+                       render_cfg, gt_disparity=gt_disparity,
+                       gt_valid=gt_valid)
+    total = parts.pop("total")
+    pose_trg2src = invert_pose(pose_src2trg)
+    if loss_cfg.symmetric:
+        rev = total_loss(ldi_trg, src_image, pose_trg2src, loss_cfg,
+                         render_cfg)
+        total = total + rev.pop("total")
+        for k, v in rev.items():
+            parts[("window_dropped_frac_rev" if k == "window_dropped_frac"
+                   else f"{k}_rev")] = v
+    terms = []
+    if loss_cfg.consistency_weight > 0:
+        terms.append(("depth_consistency", loss_cfg.consistency_weight, dict(
+            stop_target=loss_cfg.consistency_stop_target,
+            disocc_only=loss_cfg.consistency_disocc_only,
+            deep_only=loss_cfg.consistency_deep_only)))
+    if loss_cfg.consistency_anchor_weight > 0:
+        terms.append(("depth_anchor", loss_cfg.consistency_anchor_weight,
+                      dict(visible_only=True)))
+    for name, weight, kw in terms:
+        both = (depth_consistency(ldi_src, ldi_trg, pose_src2trg,
+                                  render_cfg, **kw)
+                + depth_consistency(ldi_trg, ldi_src, pose_trg2src,
+                                    render_cfg, **kw))
+        parts[name] = weight * both
+        total = total + parts[name]
+    parts["total"] = total
     return parts

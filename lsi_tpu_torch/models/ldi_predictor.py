@@ -5,6 +5,8 @@ pass). L disparity maps come from sigmoids with the depth ordering built
 in multiplicatively (deeper layer = smaller disparity by construction);
 layer 0's texture is the input image unless
 ``layer0_texture_from_input=False``, and the other textures are predicted.
+Also the layer-0/deep parameter partition: ``freeze_layer0_grad_mask``
+and ``splice_layer0_params``.
 """
 
 from __future__ import annotations
@@ -66,6 +68,31 @@ def freeze_layer0_grad_mask(cfg: ModelConfig,
             g = g.clone()
             g[:n] = 0.0
         out[name] = g
+    return out
+
+
+def splice_layer0_params(cfg: ModelConfig, live: Dict[str, torch.Tensor],
+                         best: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """The value side of :func:`freeze_layer0_grad_mask`'s partition: every
+    entry layer 0's output depends on is taken from ``best`` (the run's
+    best-eval export), the rest keeps its ``live`` value. A new dict on
+    ``live``'s devices and dtypes; the inputs are not changed.
+
+    At the freeze boundary (``train.freeze_layer0_from_best``) this makes
+    layer 0 the best geometry the run measured, and the freeze then keeps
+    it bitwise constant.
+    """
+    out = {}
+    for name, lv in live.items():
+        n = _layer0_owned_channels(cfg, name)
+        bv = best[name].to(device=lv.device, dtype=lv.dtype)
+        if n < 0:
+            lv = bv.clone()
+        elif n:
+            lv = lv.clone()
+            lv[:n] = bv[:n]
+        out[name] = lv
     return out
 
 

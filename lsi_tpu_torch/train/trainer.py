@@ -1,11 +1,12 @@
-"""The training step: model forward, differentiable render and gather,
-losses, backward and the optimizer update.
+"""The training step (model forward, differentiable render and gather,
+losses, backward and the optimizer update) and the training loop.
 
 PyTorch counterpart of ``lsi_tpu/train/trainer.py`` (``make_lr_schedule``,
 ``make_optimizer`` as the ``Optimizer`` class, ``create_state``,
-``_truncate_ldi``, ``make_train_step`` with its ``stage_layer0`` and
-``freeze_layer0`` variants). The optimizer is optax's chain written out as plain tensor ops,
-so that it matches the JAX package step for step:
+``_truncate_ldi``, ``make_train_step`` with its two-prediction path and
+its ``stage_layer0`` and ``freeze_layer0`` variants, and ``Trainer``).
+The optimizer is optax's chain written out as plain tensor ops, so that it
+matches the JAX package step for step:
 
     apply_if_finite(chain(clip_by_global_norm(grad_clip_norm),
                           adam(warmup_cosine_decay_schedule, b1, b2)),
@@ -23,17 +24,20 @@ so that it matches the JAX package step for step:
 Unlike the JAX step, which returns a new state, ``step_fn`` updates the
 state in place (parameters, moments, counters) and returns it.
 
-Not ported yet (raise ``NotImplementedError``; ROADMAP Queue 1): the
-two-prediction losses (``consistency_weight``,
-``consistency_anchor_weight``, ``symmetric``), ``remat_decoder`` and
-``family="mpi"``; the EMA teacher is a refuted knob and is not ported.
+Not ported yet (raise ``NotImplementedError``): ``remat_decoder`` (ROADMAP
+Queue 1, item 3), ``collapse_rollback_threshold > 0`` (item 5) and
+``family="mpi"`` (item 7, M11). The refuted knobs (the EMA teacher,
+``consistency_stop_step``) are not ported (ROADMAP "Do not port").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import Callable, Dict, Optional
+import os
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,11 +45,21 @@ from torch.profiler import record_function
 
 from lsi_tpu_torch.api import check_render_config
 from lsi_tpu_torch.config import Config
-from lsi_tpu_torch.data.pipeline import Batch, decode_batch
+from lsi_tpu_torch.data.pipeline import Batch, batch_stream, decode_batch
+from lsi_tpu_torch.evaluation.runner import (build_eval_step,
+                                             eval_data_config,
+                                             export_image_grid, to_floats)
 from lsi_tpu_torch.geometry.ldi import LDI
-from lsi_tpu_torch.losses.losses import check_loss_config, total_loss
+from lsi_tpu_torch.losses.losses import (check_loss_config, total_loss,
+                                         total_loss_bidirectional)
 from lsi_tpu_torch.models.ldi_predictor import (LDIPredictor,
-                                                freeze_layer0_grad_mask)
+                                                freeze_layer0_grad_mask,
+                                                splice_layer0_params)
+from lsi_tpu_torch.train.checkpoint import (CheckpointManager,
+                                            export_params_npz,
+                                            import_params_npz,
+                                            read_params_npz_meta)
+from lsi_tpu_torch.train.metrics import MetricWriter
 
 # optax.adam's default epsilon, added outside the square root.
 ADAM_EPS = 1e-8
@@ -167,23 +181,27 @@ def check_train_config(cfg: Config) -> None:
     if cfg.model.family != "ldi":
         raise NotImplementedError(
             f"model family {cfg.model.family!r} is not ported yet (ROADMAP "
-            "Queue 1, M11)")
-    lc = cfg.loss
-    if lc.consistency_weight > 0 or lc.consistency_anchor_weight > 0 \
-            or lc.symmetric:
-        raise NotImplementedError(
-            "the two-prediction losses (consistency_weight, "
-            "consistency_anchor_weight, symmetric) are not ported yet "
-            "(ROADMAP Queue 1, M6 'total_loss_bidirectional')")
-    if lc.consistency_ema_teacher:
-        raise NotImplementedError(
-            "consistency_ema_teacher is a refuted knob and is not ported "
-            "(ROADMAP 'Do not port')")
+            "Queue 1, item 7: M11)")
     if cfg.train.remat_decoder:
         raise NotImplementedError(
-            "remat_decoder is not ported yet (ROADMAP Queue 1, M8)")
-    check_loss_config(lc)
+            "remat_decoder is not ported yet (ROADMAP Queue 1, item 3)")
+    if cfg.train.collapse_rollback_threshold > 0:
+        raise NotImplementedError(
+            "collapse_rollback_threshold > 0 (the collapse rollback) is not "
+            "ported yet (ROADMAP Queue 1, item 5)")
+    check_loss_config(cfg.loss)
     check_render_config(cfg.render)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist (there is no
+    fallback to the CPU: the caller asks for it)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} asked for, but torch finds no CUDA device; "
+            "pass device='cpu' (--device cpu) to run on the CPU")
+    return dev
 
 
 def create_state(cfg: Config, seed: int = 0, device="cuda") -> TrainState:
@@ -205,22 +223,53 @@ def _truncate_ldi(ldi: LDI, num_layers: int) -> LDI:
         disparities=ldi.disparities[:, :num_layers])
 
 
+def apply_model_pair(net: LDIPredictor, image_a: torch.Tensor,
+                     image_b: torch.Tensor, intrinsics: torch.Tensor
+                     ) -> Tuple[LDI, LDI]:
+    """One forward over both views, stacked on the batch axis. The UNet
+    works per sample (convolutions; GroupNorm normalises within each
+    sample), so this equals two forwards with half the launches."""
+    b = image_a.shape[0]
+    both = net(torch.cat([image_a, image_b]),
+               torch.cat([intrinsics, intrinsics]))
+    return tuple(LDI(textures=both.textures[sl],
+                     disparities=both.disparities[sl],
+                     intrinsics=both.intrinsics[sl])
+                 for sl in (slice(0, b), slice(b, None)))
+
+
 def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
                    stage_layer0: bool = False):
     """The loss parts of one batch and the gradient of ``total`` with
     respect to every parameter (zeros where it does not reach one):
     ``(parts, {name: grad})``. The two halves are profiler ranges
-    ``train_step/forward_loss`` and ``train_step/backward``."""
+    ``train_step/forward_loss`` and ``train_step/backward``.
+
+    A two-prediction config (``symmetric``, ``consistency_weight``,
+    ``consistency_anchor_weight``) predicts from both views in one forward
+    and takes ``total_loss_bidirectional``, except in the
+    ``stage_layer0`` step, which keeps the single prediction."""
     params = state.params()
+    lc = cfg.loss
+    two_predictions = (lc.consistency_weight > 0
+                       or lc.consistency_anchor_weight > 0 or lc.symmetric)
     with record_function("train_step/forward_loss"):
         batch = decode_batch(batch)
-        pred = state.net(batch.src_image, batch.intrinsics)
-        if stage_layer0:
-            pred = _truncate_ldi(pred, 1)
-        parts = total_loss(pred, batch.trg_image, batch.pose_src2trg,
-                           cfg.loss, cfg.render,
-                           gt_disparity=batch.gt_disparity,
-                           gt_valid=batch.gt_valid)
+        if two_predictions and not stage_layer0:
+            pred, pred_trg = apply_model_pair(
+                state.net, batch.src_image, batch.trg_image, batch.intrinsics)
+            parts = total_loss_bidirectional(
+                pred, pred_trg, batch.src_image, batch.trg_image,
+                batch.pose_src2trg, cfg.loss, cfg.render,
+                gt_disparity=batch.gt_disparity, gt_valid=batch.gt_valid)
+        else:
+            pred = state.net(batch.src_image, batch.intrinsics)
+            if stage_layer0:
+                pred = _truncate_ldi(pred, 1)
+            parts = total_loss(pred, batch.trg_image, batch.pose_src2trg,
+                               cfg.loss, cfg.render,
+                               gt_disparity=batch.gt_disparity,
+                               gt_valid=batch.gt_valid)
     with record_function("train_step/backward"):
         grads = torch.autograd.grad(parts["total"], list(params.values()),
                                     allow_unused=True)
@@ -265,3 +314,318 @@ def make_train_step(cfg: Config, stage_layer0: bool = False,
         return state, metrics
 
     return step_fn
+
+
+class Trainer:
+    """The training loop of ``lsi_tpu.train.trainer.Trainer``:
+
+        state, metrics = Trainer(cfg).train()   # resumes automatically
+
+    Phases, chosen per step in this order of precedence (the JAX order):
+    ``stage`` (``train.stage_layer0_steps``), ``freeze``
+    (``train.freeze_layer0_step`` on), ``warmup`` (before
+    ``loss.consistency_start_step``: the full loss with
+    ``consistency_weight=0``, the anchor kept), ``full``. An eval every
+    ``train.eval_every`` steps writes ``eval_*`` metrics and an image grid,
+    tracks layer-0 drift against the run's best ``eval_abs_rel``, and
+    exports the params to ``best_params.npz`` (metadata inside, written
+    atomically) when that improves. With ``train.freeze_layer0_from_best``
+    the layer-0 parameters are spliced from that export when the run
+    crosses the freeze step. A non-finite loss halts the run with a params
+    dump outside the checkpoints.
+
+    ``device`` defaults to the card; with no CUDA device it raises (pass
+    ``device="cpu"`` to train on the CPU).
+    """
+
+    BEST_NPZ = "best_params.npz"
+    BEST_JSON = "best_params.json"
+
+    def __init__(self, config: Config, device="cuda"):
+        cfg = self.config = config
+        self.device = resolve_device(device)
+        check_train_config(cfg)
+        t, lcfg = cfg.train, cfg.loss
+        self.writer = MetricWriter(t.checkpoint_dir)
+        self.ckpt = CheckpointManager(t.checkpoint_dir, t.max_to_keep)
+        self.step_fns = {"full": make_train_step(cfg)}
+        if t.stage_layer0_steps > 0:
+            self.step_fns["stage"] = make_train_step(cfg, stage_layer0=True)
+        if lcfg.consistency_weight > 0 and lcfg.consistency_start_step > 0:
+            # Pseudo-labels from a fresh network are noise: before the
+            # start step the term is dropped; the anchor stays on.
+            self.step_fns["warmup"] = make_train_step(cfg.replace(
+                loss=dataclasses.replace(lcfg, consistency_weight=0.0)))
+        fz = t.freeze_layer0_step
+        if t.freeze_layer0_from_best:
+            ev = t.eval_every
+            if fz <= 0:
+                raise ValueError("train.freeze_layer0_from_best requires "
+                                 "train.freeze_layer0_step > 0")
+            if not t.save_best_params:
+                raise ValueError("train.freeze_layer0_from_best requires "
+                                 "train.save_best_params=True (the splice "
+                                 "source is the best-eval export)")
+            if ev <= 0 or ev > fz:
+                raise ValueError(
+                    "train.freeze_layer0_from_best needs at least one "
+                    "in-training eval before the freeze boundary: "
+                    f"eval_every={ev} vs freeze_layer0_step={fz}")
+        if fz > 0:
+            if 0 < fz < t.stage_layer0_steps:
+                raise ValueError(
+                    f"train.freeze_layer0_step={fz} must be >= "
+                    f"train.stage_layer0_steps={t.stage_layer0_steps} (the "
+                    "freeze is the LAST phase)")
+            if lcfg.consistency_weight > 0 and fz < lcfg.consistency_start_step:
+                raise ValueError(
+                    f"train.freeze_layer0_step={fz} must be >= "
+                    f"loss.consistency_start_step={lcfg.consistency_start_step}"
+                    " (the freeze is the LAST phase)")
+            self.step_fns["freeze"] = make_train_step(cfg, freeze_layer0=True)
+        self._eval_step = None
+        self._eval_iter = None
+        self._best_eval_abs_rel = None
+        self._drift_seeded = False
+        self._best_export_abs_rel = None
+
+    def phase(self, step: int) -> str:
+        """The phase that runs 0-based step ``step``."""
+        t, lcfg = self.config.train, self.config.loss
+        if "stage" in self.step_fns and step < t.stage_layer0_steps:
+            return "stage"
+        if "freeze" in self.step_fns and step >= t.freeze_layer0_step:
+            return "freeze"
+        if "warmup" in self.step_fns and step < lcfg.consistency_start_step:
+            return "warmup"
+        return "full"
+
+    def run_step(self, phase: str, state: TrainState, batch: Batch):
+        """One step of ``phase``: ``(state, metrics)``."""
+        return self.step_fns[phase](state, batch)
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.config.train.checkpoint_dir, name)
+
+    # ------------------------------------------------------------- eval
+
+    def _update_drift(self, out: Dict[str, float]) -> None:
+        """``eval_abs_rel_drift``: abs_rel above the run's best so far, with
+        a warning past ``train.drift_warn_threshold``. A resumed run seeds
+        its best from ``train.jsonl``; a fresh start does not (that file
+        may hold another run's lines)."""
+        thr = self.config.train.drift_warn_threshold
+        if thr <= 0 or "eval_abs_rel" not in out:
+            return
+        if not self._drift_seeded:
+            self._best_eval_abs_rel = _best_abs_rel_from_jsonl(
+                self._path("train.jsonl"))
+            self._drift_seeded = True
+        cur = float(out["eval_abs_rel"])
+        best = self._best_eval_abs_rel
+        drift = 0.0 if best is None else max(0.0, cur - best)
+        out["eval_abs_rel_drift"] = drift
+        if best is None or cur < best:
+            self._best_eval_abs_rel = cur
+        if drift > thr:
+            print(f"[drift] eval_abs_rel {cur:.3f} exceeds the run's best "
+                  f"{best:.3f} by {drift:.3f} (> {thr}): view synthesis is "
+                  "likely being bought with geometry drift; the measured "
+                  "mitigations are loss.min_layer0_margin=0.02, a late "
+                  "layer-0 freeze (train.freeze_layer0_step) and best-"
+                  "checkpoint selection by eval_abs_rel", flush=True)
+
+    def run_eval(self, state: TrainState, step: int) -> Dict[str, float]:
+        """The in-training eval on held-out batches: ``eval_*`` metrics to
+        the jsonl and an image grid under ``eval_images/step_<N>``."""
+        cfg = self.config
+        if self._eval_step is None:
+            self._eval_step = build_eval_step(cfg)
+            self._eval_iter = batch_stream(eval_data_config(cfg.data),
+                                           seed=cfg.train.seed + 1,
+                                           device=self.device)
+        n = max(1, cfg.train.eval_batches)
+        sums: Dict[str, float] = {}
+        grid_args = None
+        for i in range(n):
+            batch = next(self._eval_iter)
+            metrics, rendered, pred = self._eval_step(state.net, batch)
+            for k, v in to_floats(metrics).items():
+                sums[k] = sums.get(k, 0.0) + v
+            if i == 0:
+                grid_args = (batch, rendered, pred)
+        out = {f"eval_{k}": v / n for k, v in sums.items()}
+        if "eval_abs_rel" not in out and (cfg.train.freeze_layer0_from_best
+                                          and not cfg.train.freeze_fallback_live):
+            raise ValueError(
+                "train.freeze_layer0_from_best requires eval_abs_rel, but the "
+                f"eval at step {step} produced none: the eval split of "
+                f"dataset {cfg.data.dataset!r} has no ground-truth depth. "
+                "Provide it, or set train.freeze_fallback_live=True to "
+                "freeze the live params at the boundary.")
+        export_image_grid(*grid_args, self._path(os.path.join(
+            "eval_images", f"step_{step:08d}")))
+        self._update_drift(out)
+        self._maybe_export_best(state, step, out)
+        self.writer.write(step, out)
+        return out
+
+    def _maybe_export_best(self, state: TrainState, step: int,
+                           out: Dict[str, float]) -> None:
+        """``best_params.npz`` (JAX's key format, ``step`` and
+        ``eval_abs_rel`` inside) whenever eval_abs_rel beats the best
+        export so far; written to a temporary name and renamed, with a
+        json sidecar for the operator."""
+        cfg = self.config
+        if not cfg.train.save_best_params or "eval_abs_rel" not in out:
+            return
+        if self._best_export_abs_rel is None:
+            try:
+                self._best_export_abs_rel = float(read_params_npz_meta(
+                    self._path(self.BEST_NPZ))["eval_abs_rel"])
+            except (OSError, KeyError, ValueError):
+                pass
+        cur = float(out["eval_abs_rel"])
+        if (self._best_export_abs_rel is not None
+                and cur >= self._best_export_abs_rel):
+            return
+        self._best_export_abs_rel = cur
+        meta = {"step": step, "eval_abs_rel": cur}
+        npz = self._path(self.BEST_NPZ)
+        export_params_npz(state.net.state_dict(), npz + ".tmp.npz", meta)
+        os.replace(npz + ".tmp.npz", npz)
+        side = self._path(self.BEST_JSON)
+        with open(side + ".tmp", "w") as f:
+            json.dump(meta, f)
+        os.replace(side + ".tmp", side)
+
+    def splice_best_layer0(self, state: TrainState) -> TrainState:
+        """At the freeze boundary: every layer-0-owned parameter entry from
+        ``best_params.npz``, the rest live. Params only: the Adam moments
+        are kept. The provenance printed comes from the npz's own
+        metadata."""
+        cfg = self.config
+        npz = self._path(self.BEST_NPZ)
+        if not os.path.exists(npz):
+            msg = ("freeze_layer0_from_best: no best_params.npz in "
+                   f"{cfg.train.checkpoint_dir} at the freeze boundary (no "
+                   "eval ever produced an export)")
+            if not cfg.train.freeze_fallback_live:
+                raise FileNotFoundError(
+                    msg + "; refusing to freeze the live params (set "
+                    "train.freeze_fallback_live=True to opt in)")
+            print(f"[freeze] {msg}; freezing the live params "
+                  "(train.freeze_fallback_live)", flush=True)
+            return state
+        best = import_params_npz(cfg.model, npz)
+        live = {k: p.detach() for k, p in state.net.named_parameters()}
+        spliced = splice_layer0_params(cfg.model, live, best)
+        with torch.no_grad():
+            for k, p in state.net.named_parameters():
+                p.copy_(spliced[k])
+        try:
+            meta = read_params_npz_meta(npz)
+            src = (f"step {int(meta['step'])}, "
+                   f"eval_abs_rel {meta['eval_abs_rel']:.4f}")
+        except (OSError, KeyError, ValueError):
+            src = "metadata missing"
+        print(f"[freeze] layer-0 spliced from best_params.npz ({src}) and "
+              "frozen; deep heads continue from the live state", flush=True)
+        return state
+
+    # ------------------------------------------------------------ train
+
+    def train(self, max_steps: Optional[int] = None,
+              data_iter=None) -> Tuple[TrainState, Dict[str, Any]]:
+        cfg = self.config
+        t = cfg.train
+        max_steps = max_steps or t.max_steps
+        state = create_state(cfg, seed=t.seed, device=self.device)
+        state = self.ckpt.restore(state)
+        start_step = state.step
+        if start_step == 0:
+            # A fresh start in a reused directory: another run's best
+            # export must neither seed the trackers nor be spliced into
+            # layer 0, and its jsonl lines must not seed the drift
+            # baseline.
+            for name in (self.BEST_NPZ, self.BEST_JSON,
+                         "rollback_state.json"):
+                if os.path.exists(self._path(name)):
+                    os.remove(self._path(name))
+                    print(f"[train] fresh start: removed stale {name} from "
+                          f"{t.checkpoint_dir}", flush=True)
+            self._drift_seeded = True
+        if data_iter is None:
+            data_iter = batch_stream(cfg.data, seed=t.seed,
+                                     device=self.device)
+        profiler = None
+        if t.profile_dir:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.start()
+
+        last_metrics: Dict[str, Any] = {}
+        t_last, steps, frames = time.perf_counter(), 0, 0
+        try:
+            for step in range(start_step, max_steps):
+                batch = next(data_iter)
+                if (t.freeze_layer0_from_best and "freeze" in self.step_fns
+                        and step == t.freeze_layer0_step):
+                    # Crossing the boundary live; a resume past it restores
+                    # already-spliced params and must not splice again.
+                    state = self.splice_best_layer0(state)
+                state, metrics = self.run_step(self.phase(step), state, batch)
+                steps += 1
+                frames += cfg.data.batch_size
+
+                if (step + 1) % t.log_every == 0 or step + 1 == max_steps:
+                    metrics = to_floats(metrics)
+                    if not all(map(math.isfinite, metrics.values())):
+                        # Halt; the poisoned params go to a dump outside
+                        # the checkpoints, which resume would restore.
+                        dump = self._path(
+                            f"nan_debug_params_step{step + 1}.npz")
+                        export_params_npz(state.net.state_dict(), dump)
+                        raise FloatingPointError(
+                            f"non-finite loss at step {step + 1}: {metrics} "
+                            f"(params dumped to {dump})")
+                    now = time.perf_counter()
+                    metrics["steps_per_sec"] = steps / (now - t_last)
+                    metrics["frames_per_sec"] = frames / (now - t_last)
+                    t_last, steps, frames = now, 0, 0
+                    self.writer.write(step + 1, metrics)
+                    last_metrics = metrics
+
+                if t.eval_every and ((step + 1) % t.eval_every == 0
+                                     or step + 1 == max_steps):
+                    last_metrics.update(self.run_eval(state, step + 1))
+
+                if (step + 1) % t.checkpoint_every == 0 \
+                        or step + 1 == max_steps:
+                    self.ckpt.save(step + 1, state)
+        finally:
+            if profiler is not None:
+                profiler.stop()
+                os.makedirs(t.profile_dir, exist_ok=True)
+                profiler.export_chrome_trace(
+                    os.path.join(t.profile_dir, "trace.json"))
+        return state, last_metrics
+
+
+def _best_abs_rel_from_jsonl(path: str) -> Optional[float]:
+    """The least ``eval_abs_rel`` in a train.jsonl, or None."""
+    best = None
+    try:
+        with open(path) as f:
+            for line in f:
+                try:
+                    v = json.loads(line).get("eval_abs_rel")
+                except json.JSONDecodeError:
+                    continue
+                if v is not None and (best is None or v < best):
+                    best = float(v)
+    except OSError:
+        return None
+    return best

@@ -2,6 +2,7 @@
 the CPU: the spread the tolerances of the train-step comparisons rest on.
 
     JAX_PLATFORMS=cpu python scripts/train_parity_spread.py
+    JAX_PLATFORMS=cpu python scripts/train_parity_spread.py --quality
 
 Reads tests/data/torch_golden_train_toy.npz (scripts/make_torch_golden_train.py)
 and prints, for each of its three batches at its initial params:
@@ -20,6 +21,13 @@ gradient dropped, the splat VJP's coordinate gradient zeroed, and the
 gather's ``valid`` cotangent dropped; then runs the port's train step on the CPU for the three steps and prints
 the parameters' distance from the fixture's: the largest difference, the
 mean difference over the mean movement, and the cosine of the movements.
+
+With ``--quality`` it reads tests/data/torch_golden_quality_toy.npz
+(scripts/make_torch_golden_quality.py) instead: the two-prediction loss of
+the toy quality recipe on its two batches, and the step-1 gradients with
+four planted faults of the two-prediction terms (the pseudo-label's
+gradient dropped, the anchor's gradient dropped, ``deep_only`` and
+``stop_target`` ignored); no parameter paths.
 """
 
 from __future__ import annotations
@@ -32,11 +40,134 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
-                      "tests", "data", "torch_golden_train_toy.npz")
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
+                    "tests", "data")
+GOLDEN = os.path.join(DATA, "torch_golden_train_toy.npz")
+GOLDEN_QUALITY = os.path.join(DATA, "torch_golden_quality_toy.npz")
 
 
-def main() -> None:
+def quality_spread() -> None:
+    """The --quality report (see the module docstring)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from lsi_tpu.config import get_config as j_get_config
+    from lsi_tpu.data.pipeline import Batch as JBatch
+    from lsi_tpu.data.pipeline import decode_batch as j_decode
+    from lsi_tpu.losses.losses import \
+        total_loss_bidirectional as j_total_loss_bidirectional
+    from lsi_tpu.models.ldi_predictor import LDIPredictor as JLDIPredictor
+    from lsi_tpu_torch.config import Config
+    from lsi_tpu_torch.data.pipeline import Batch
+    from lsi_tpu_torch.losses import losses
+    from lsi_tpu_torch.models.convert import state_dict_from_jax
+    from lsi_tpu_torch.train.trainer import create_state, loss_and_grads
+    from make_torch_golden_quality import flat, toy_quality
+
+    with np.load(GOLDEN_QUALITY) as g:
+        golden = {k: g[k] for k in g.files}
+
+    def section(prefix):
+        return {k[len(prefix):]: v for k, v in golden.items()
+                if k.startswith(prefix)}
+
+    cfg = Config.from_dict(json.loads(bytes(golden["__config__"]).decode()))
+    jcfg = toy_quality(j_get_config)
+    tree = {}
+    for key, v in section("params/").items():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(v)
+    model = JLDIPredictor(jcfg.model)
+    state = create_state(cfg, device="cpu")
+    state.net.load_state_dict(state_dict_from_jax(section("params/"),
+                                                  cfg.model))
+
+    for i in range(2):
+        arrays = section(f"batch{i}/")
+
+        def loss(params):
+            b = j_decode(JBatch(**arrays))
+            n = b.src_image.shape[0]
+            both = model.apply(
+                {"params": params},
+                jnp.concatenate([b.src_image, b.trg_image]),
+                jnp.concatenate([b.intrinsics, b.intrinsics]))
+            src, trg = (both.replace(textures=both.textures[sl],
+                                     disparities=both.disparities[sl],
+                                     intrinsics=both.intrinsics[sl])
+                        for sl in (slice(0, n), slice(n, None)))
+            return j_total_loss_bidirectional(
+                src, trg, b.src_image, b.trg_image, b.pose_src2trg,
+                jcfg.loss, jcfg.render, gt_disparity=b.gt_disparity,
+                gt_valid=b.gt_valid)["total"]
+
+        eager = flat(jax.grad(loss)(tree))
+        jitted = flat(jax.jit(jax.grad(loss))(tree))
+        port = loss_and_grads(state, Batch(**{
+            k: torch.from_numpy(v) for k, v in arrays.items()}), cfg)[1]
+        g_max = max(float(np.abs(v).max()) for v in jitted.values())
+        jit_eager = max(float(np.abs(eager[k] - jitted[k]).max())
+                        for k in eager)
+        for name, ref in (("jit", jitted), ("eager", eager)):
+            want = state_dict_from_jax(ref, cfg.model)
+            err = max(float((port[k] - want[k]).abs().max()) for k in want)
+            print(f"batch {i}: port (CPU) vs JAX {name} {err:.3e} "
+                  f"({err / g_max:.2e} of the largest |grad| {g_max:.3e})")
+        print(f"batch {i}: JAX jit vs eager {jit_eager:.3e} "
+              f"({jit_eager / g_max:.2e} of the largest)")
+
+    batch0 = Batch(**{k: torch.from_numpy(v)
+                      for k, v in section("batch0/").items()})
+    want = state_dict_from_jax(section("step1_grads/"), cfg.model)
+    g_max = max(float(v.abs().max()) for v in want.values())
+
+    def step1_error(c=cfg) -> float:
+        grads = loss_and_grads(state, batch0, c)[1]
+        return max(float((grads[k] - want[k]).abs().max())
+                   for k in want) / g_max
+
+    print(f"step-1 gradients on batch 0 vs the fixture (JAX eager), max abs "
+          f"err / largest |grad| ({g_max:.3e}): sound {step1_error():.3e}")
+    consistency = losses.depth_consistency
+
+    def detached(**flags):
+        def term(*a, **k):
+            out = consistency(*a, **k)
+            return out.detach() if all(k.get(f) for f in flags) else out
+        return term
+
+    faults = {
+        "pseudo-label gradient dropped": detached(disocc_only=True),
+        "anchor gradient dropped": detached(visible_only=True),
+        "deep_only ignored": lambda *a, **k: consistency(
+            *a, **{**k, "deep_only": False}),
+        "stop_target ignored": lambda *a, **k: consistency(
+            *a, **{**k, "stop_target": False}),
+    }
+    for name, planted in faults.items():
+        losses.depth_consistency = planted
+        try:
+            print(f"  planted fault, {name}: {step1_error():.3e}")
+        finally:
+            losses.depth_consistency = consistency
+
+
+def main(argv=None) -> None:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--quality", action="store_true",
+                        help="the two-prediction (quality) fixture")
+    if parser.parse_args(argv).quality:
+        quality_spread()
+        return
+    train_spread()
+
+
+def train_spread() -> None:
     import jax
     import jax.numpy as jnp
     import torch

@@ -170,9 +170,11 @@ def test_entry_points_default_to_cuda(tmp_path):
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter serves predict_ldi -> render and takes one
-    train step of a toy kitti_ldi3_b16 through the port with neither JAX
-    nor any module of the JAX package loaded."""
+    """A fresh interpreter serves predict_ldi -> render, takes one train
+    step of a toy kitti_ldi3_b16, and trains a toy kitti_ldi3_quality for
+    one step through the training CLI and scores it through the eval CLI,
+    all through the port, with neither JAX nor any module of the JAX
+    package loaded."""
     code = textwrap.dedent("""
         import dataclasses
         import math
@@ -200,6 +202,27 @@ def test_port_never_imports_jax():
                                                        device="cpu")))
         assert all(math.isfinite(float(v)) for v in metrics.values())
         assert float(metrics["photo_splat"]) > 0 and state.step == 1
+        import tempfile
+        import lsi_tpu_torch.evaluation.metrics
+        import lsi_tpu_torch.evaluation.occlusion
+        import lsi_tpu_torch.train.checkpoint
+        import lsi_tpu_torch.train.metrics
+        from lsi_tpu_torch.evaluation.runner import main as eval_main
+        from lsi_tpu_torch.train.__main__ import main as train_main
+        with tempfile.TemporaryDirectory() as ckpt:
+            sets = ["model.base_filters=8", "model.num_scales=2",
+                    "data.dataset=synthetic", "data.synthetic_scene=multi",
+                    "data.height=16", "data.width=32", "data.batch_size=2",
+                    "train.max_steps=1", "train.eval_every=1",
+                    "train.eval_batches=1", "train.freeze_layer0_step=1",
+                    "loss.consistency_start_step=0",
+                    f"train.checkpoint_dir={ckpt}"]
+            state, metrics = train_main(["--config=kitti_ldi3_quality",
+                                         "--device", "cpu", "--set", *sets])
+            assert state.step == 1 and "depth_consistency" in metrics
+            results = eval_main(["--config=kitti_ldi3_quality", "--device",
+                                 "cpu", "--num_batches", "1", "--set", *sets])
+            assert math.isfinite(results["abs_rel"])
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "lsi_tpu"))
         assert not bad, bad

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: K1 (forward splat), the splat VJP
 (K2 + K3) and the bilinear gather (K4) against their plain versions, their
-launch counts, the render and golden fixture on CUDA, and one train step.
+launch counts, the render and golden fixture on CUDA, K1 at the layer-0
+render's shape and the no-grad disocclusion render, and one train step of
+each kind (single and two predictions).
 
 Every test needs a CUDA card (marker ``gpu``) and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed; there,
@@ -18,8 +20,11 @@ import torch
 
 from lsi_tpu_torch.api import LSIModel
 from lsi_tpu_torch.config import get_config
+from lsi_tpu_torch.config import RenderConfig
 from lsi_tpu_torch.data.pipeline import Batch, batch_stream
+from lsi_tpu_torch.evaluation.occlusion import disocclusion_mask
 from lsi_tpu_torch.geometry.ldi import LDI, render_forward
+from lsi_tpu_torch.losses.losses import depth_consistency
 from lsi_tpu_torch.geometry.transforms import pose_from_euler
 from lsi_tpu_torch.kernels import gather_cuda, splat_cuda
 from lsi_tpu_torch.ops.gather import bilinear_sample
@@ -440,5 +445,97 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     for k, v in metrics["cpu"].items():
         # float32 with TF32 off; grad_norm moves where a coordinate crosses
         # a pixel or snap-zone edge (tests/test_torch_train.py): 1e-3.
+        np.testing.assert_allclose(float(metrics[str(cuda)][k]), float(v),
+                                   rtol=1e-3, atol=1e-6, err_msg=k)
+
+
+def test_k1_at_the_layer0_render_shape(cuda):
+    """The disocclusion mask splats layer 0 alone: (8, 256, 768, 4) ->
+    (256, 768) at the quality step's width, one source row per target
+    row."""
+    args = [torch.from_numpy(a).to(cuda) for a in splat_inputs(
+        11, 8, 256, 768, 4, (256, 768), "random")]
+    acc, ws = splat_cuda.splat(*args, (256, 768))
+    ref = splat_bilinear(*args, (256, 768))
+    torch.cuda.synchronize()
+    for got, want in zip((acc, ws), ref):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def layered_scene(dev, b=2, h=24, w=64):
+    """An L=3 LDI with a foreground block in layer 0 (so splatting layer 0
+    leaves a disoccluded band) and a target prediction, both requiring
+    grad, and a pose."""
+    rng = np.random.default_rng(12)
+    ldis = []
+    for _ in range(2):
+        tex = rng.uniform(size=(b, 3, h, w, 3)).astype(np.float32)
+        d0 = rng.uniform(0.25, 0.35, (b, 1, h, w, 1))
+        d0[:, :, 6:18, 20:44] += 0.3
+        disp = np.concatenate([d0, 0.5 * d0, 0.15 * d0], 1).astype(
+            np.float32)
+        K = np.tile(np.array([[50.0, 0, (w - 1) / 2], [0, 50.0, (h - 1) / 2],
+                              [0, 0, 1]], np.float32), (b, 1, 1))
+        ldis.append(LDI(*(torch.from_numpy(a).to(dev).requires_grad_(g)
+                          for a, g in ((tex, True), (disp, True),
+                                       (K, False)))))
+    pose = pose_from_euler([[0.0, 0.02, 0.0]] * b, [[-0.3, 0.0, 0.0]] * b)
+    return ldis[0], ldis[1], pose.to(dev)
+
+
+def test_disocclusion_render_is_a_no_grad_k1_launch(cuda):
+    """The mask's layer-0 render on tensors that require grad: one K1
+    launch, no autograd node (the direct-call guard stays quiet), the CPU
+    path's mask; and a disocc_only consistency backward launches the
+    splat VJP once (the main render's), never for the mask."""
+    src, trg, pose = layered_scene(cuda)
+    counts = [k.launches for k in KERNELS]
+    mask = disocclusion_mask(src, pose)
+    assert [k.launches - n for k, n in zip(KERNELS, counts)] == [1, 0, 0, 0]
+    assert mask.grad_fn is None
+    src_cpu, _, pose_cpu = layered_scene("cpu")
+    torch.testing.assert_close(mask.cpu(), disocclusion_mask(src_cpu,
+                                                             pose_cpu))
+    assert 0.0 < float(mask.mean()) < 0.5
+
+    counts = [k.launches for k in KERNELS]
+    loss = depth_consistency(src, trg, pose, RenderConfig(), stop_target=True,
+                             disocc_only=True, deep_only=True)
+    loss.backward()
+    assert [k.launches - n for k, n in zip(KERNELS, counts)] == [2, 1, 0, 0]
+    assert float(src.disparities.grad[:, 0].abs().max()) == 0.0
+    assert float(src.disparities.grad[:, 1:].abs().max()) > 0.0
+
+
+def test_two_prediction_step_on_cuda_matches_cpu(cuda):
+    """One toy step of kitti_ldi3_quality on the card and on the CPU from
+    the same params and batch: the launches of the table in PERF.md per
+    full step (K1 6 full-LDI renders + 4 layer-0 renders, the VJP 6,
+    each gather kernel 2), the same loss parts."""
+    cfg = get_config("kitti_ldi3_quality")
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, base_filters=8,
+                                       num_scales=2, compute_dtype="float32"),
+        data=dataclasses.replace(cfg.data, dataset="synthetic",
+                                 synthetic_scene="multi", height=32,
+                                 width=64, batch_size=2))
+    batch = next(batch_stream(cfg.data, device="cpu"))
+    metrics = {}
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda):
+            state = create_state(cfg, seed=0, device=dev)
+            counts = [k.launches for k in KERNELS]
+            b = Batch(**{f.name: getattr(batch, f.name).to(dev)
+                         for f in dataclasses.fields(Batch)})
+            _, metrics[str(dev)] = make_train_step(cfg)(state, b)
+            launched = [k.launches - n for k, n in zip(KERNELS, counts)]
+            assert launched == ([0] * 4 if dev == "cpu" else [10, 6, 2, 2])
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    for k, v in metrics["cpu"].items():
+        # As the single-prediction step above: 1e-3.
         np.testing.assert_allclose(float(metrics[str(cuda)][k]), float(v),
                                    rtol=1e-3, atol=1e-6, err_msg=k)

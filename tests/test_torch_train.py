@@ -2,7 +2,8 @@
 schedule and the optimizer against optax, the layer-0 freeze mask, three
 train steps (plain, ``stage_layer0``, ``freeze_layer0``) against
 ``lsi_tpu.train.trainer.make_train_step`` on the CPU, the golden train
-fixture, the synthetic data and batches, and the options not ported yet.
+fixture, the synthetic data and batches (two-plane and multi-object), and
+the options not ported yet.
 
 JAX runs on its lax path (the CPU default); no Pallas kernel runs here.
 """
@@ -339,9 +340,9 @@ def test_create_state_defaults_to_cuda():
 
 
 UNPORTED = {
-    "consistency_weight": ("loss", {"consistency_weight": 0.5}),
-    "symmetric": ("loss", {"symmetric": True}),
     "ema_teacher": ("loss", {"consistency_ema_teacher": True}),
+    "consistency_stop_step": ("loss", {"consistency_stop_step": 10}),
+    "collapse_rollback": ("train", {"collapse_rollback_threshold": 0.1}),
     "candidate_radius": ("loss", {"candidate_radius": 1}),
     "ssim_weight": ("loss", {"ssim_weight": 0.5}),
     "photo_layer0_weight": ("loss", {"photo_layer0_weight": 0.1}),
@@ -372,6 +373,31 @@ def test_synthetic_scene_is_byte_identical(seed, epoch, index, h, w):
     for k in ref:
         assert mine[k].dtype == ref[k].dtype, k
         np.testing.assert_array_equal(mine[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("seed,epoch,index,h,w", [(0, 0, 0, 32, 64),
+                                                  (7, 2, 513, 24, 40)])
+def test_multi_scene_is_byte_identical(seed, epoch, index, h, w):
+    mine = tsyn.scene_example("multi", seed, epoch, index, h, w)
+    ref = jsyn.scene_example("multi", seed, epoch, index, h, w)
+    assert sorted(mine) == sorted(ref)
+    for k in ref:
+        assert mine[k].dtype == ref[k].dtype, k
+        np.testing.assert_array_equal(mine[k], ref[k], err_msg=k)
+
+
+def test_multi_batch_stream_matches_jax():
+    cfg = dataclasses.replace(toy_config(get_config).data,
+                              synthetic_scene="multi")
+    jcfg = dataclasses.replace(toy_config(j_get_config).data,
+                               synthetic_scene="multi")
+    mine = tpipe.batch_stream(cfg, seed=2, device="cpu")
+    ref = jpipe._batch_stream(jcfg, 2, True)
+    for _ in range(2):
+        a, b = next(mine), next(ref)
+        for f in dataclasses.fields(tpipe.Batch):
+            np.testing.assert_array_equal(getattr(a, f.name).numpy(),
+                                          getattr(b, f.name), err_msg=f.name)
 
 
 def test_batch_stream_matches_jax():
@@ -409,8 +435,7 @@ def test_decode_batch_matches_jax(rng):
 
 def test_unported_data_raises():
     cfg = toy_config(get_config).data
-    for change in ({"dataset": "kitti"}, {"root": "/data"},
-                   {"synthetic_scene": "multi"}):
+    for change in ({"dataset": "kitti"}, {"root": "/data"}):
         with pytest.raises(NotImplementedError):
             next(tpipe.batch_stream(dataclasses.replace(cfg, **change),
                                     device="cpu"))
