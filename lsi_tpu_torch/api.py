@@ -53,6 +53,17 @@ def check_render_config(config: RenderConfig) -> None:
             "only 'scatter'")
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist (there is no
+    fallback to the CPU: the caller asks for it)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} asked for, but torch finds no CUDA device; "
+            "pass device='cpu' (--device cpu) to run on the CPU")
+    return dev
+
+
 @torch.inference_mode()
 def predict_ldi(image: torch.Tensor, model: LDIPredictor,
                 intrinsics: Optional[torch.Tensor] = None) -> LDI:

@@ -7,9 +7,8 @@ holds the two copies equal field by field and preset by preset, and
 ``api.LSIModel`` reads and writes the same JSON, so a saved model
 round-trips between the packages.
 
-The port reads ``model`` and ``render`` (and ``data.height/width`` as
-defaults); ``loss``, ``data`` and ``train`` ride along for the file format
-and for the training slice to come.
+``build_config`` (a preset with dotted ``--set`` overrides, through a
+copy of ``apply_override``) is what the training and eval CLIs read.
 """
 
 from __future__ import annotations
@@ -215,3 +214,37 @@ def get_config(name: str) -> Config:
         raise KeyError(
             f"unknown config preset {name!r}; available: {sorted(PRESETS)}")
     return PRESETS[name]
+
+
+def apply_override(cfg, dotted: str):
+    """Apply one 'a.b=value' override to a frozen dataclass tree (a copy
+    of ``lsi_tpu/train/__main__.py``'s, which would import JAX)."""
+    path, value = dotted.split("=", 1)
+    keys = path.split(".")
+
+    def convert(old, s: str):
+        if isinstance(old, bool):
+            return s.lower() in ("1", "true", "yes")
+        if isinstance(old, int):
+            return int(s)
+        if isinstance(old, float):
+            return float(s)
+        return s
+
+    def rec(node, keys):
+        if len(keys) == 1:
+            old = getattr(node, keys[0])
+            return dataclasses.replace(node, **{keys[0]: convert(old, value)})
+        sub = getattr(node, keys[0])
+        return dataclasses.replace(node, **{keys[0]: rec(sub, keys[1:])})
+
+    return rec(cfg, keys)
+
+
+def build_config(name: str, overrides) -> Config:
+    """The preset ``name`` with each 'a.b=value' override applied (the
+    training and eval CLIs' ``--config`` and ``--set``)."""
+    cfg = get_config(name)
+    for ov in overrides:
+        cfg = apply_override(cfg, ov)
+    return cfg

@@ -18,6 +18,7 @@ Not ported yet: ``--trajectory_gif`` (ROADMAP Queue 1, item 6: M10's
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 import struct
@@ -27,12 +28,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from lsi_tpu_torch.config import Config, DataConfig
+from lsi_tpu_torch.api import resolve_device
+from lsi_tpu_torch.config import PRESETS, Config, DataConfig, build_config
 from lsi_tpu_torch.data.pipeline import Batch, batch_stream, decode_batch
 from lsi_tpu_torch.evaluation.metrics import depth_metrics, psnr, ssim
 from lsi_tpu_torch.evaluation.occlusion import occlusion_metrics
 from lsi_tpu_torch.geometry.ldi import LDI, render_forward
 from lsi_tpu_torch.models.ldi_predictor import LDIPredictor
+from lsi_tpu_torch.train.checkpoint import CheckpointManager
 
 
 def build_eval_step(cfg: Config):
@@ -143,13 +146,6 @@ def export_image_grid(batch: Batch, rendered: torch.Tensor, pred: LDI,
 
 
 def main(argv=None) -> Dict[str, float]:
-    import argparse
-
-    from lsi_tpu_torch.config import PRESETS
-    from lsi_tpu_torch.train.__main__ import build_config
-    from lsi_tpu_torch.train.checkpoint import CheckpointManager
-    from lsi_tpu_torch.train.trainer import resolve_device
-
     ap = argparse.ArgumentParser(
         prog="python -m lsi_tpu_torch.evaluation.runner")
     ap.add_argument("--config", default="kitti_ldi2",

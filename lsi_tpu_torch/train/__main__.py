@@ -12,42 +12,9 @@ takes the place of JAX's ``JAX_PLATFORMS``: the run is on the card unless
 from __future__ import annotations
 
 import argparse
-import dataclasses
 
-from lsi_tpu_torch.config import PRESETS, Config, get_config
-
-
-def apply_override(cfg, dotted: str):
-    """Apply one 'a.b=value' override to a frozen dataclass tree (a copy
-    of the JAX package's, which would import JAX)."""
-    path, value = dotted.split("=", 1)
-    keys = path.split(".")
-
-    def convert(old, s: str):
-        if isinstance(old, bool):
-            return s.lower() in ("1", "true", "yes")
-        if isinstance(old, int):
-            return int(s)
-        if isinstance(old, float):
-            return float(s)
-        return s
-
-    def rec(node, keys):
-        if len(keys) == 1:
-            old = getattr(node, keys[0])
-            return dataclasses.replace(node, **{keys[0]: convert(old, value)})
-        sub = getattr(node, keys[0])
-        return dataclasses.replace(node, **{keys[0]: rec(sub, keys[1:])})
-
-    return rec(cfg, keys)
-
-
-def build_config(name: str, overrides) -> Config:
-    """The preset ``name`` with each 'a.b=value' override applied."""
-    cfg = get_config(name)
-    for ov in overrides:
-        cfg = apply_override(cfg, ov)
-    return cfg
+from lsi_tpu_torch.config import PRESETS, build_config
+from lsi_tpu_torch.train.trainer import Trainer
 
 
 def main(argv=None):
@@ -62,7 +29,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = build_config(args.config, args.set)
     print(f"config: {cfg}")
-    from lsi_tpu_torch.train.trainer import Trainer
     state, metrics = Trainer(cfg, device=args.device).train()
     print(f"done at step {state.step}: {metrics}")
     return state, metrics

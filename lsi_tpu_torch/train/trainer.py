@@ -43,7 +43,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from lsi_tpu_torch.api import check_render_config
+from lsi_tpu_torch.api import check_render_config, resolve_device
 from lsi_tpu_torch.config import Config
 from lsi_tpu_torch.data.pipeline import Batch, batch_stream, decode_batch
 from lsi_tpu_torch.evaluation.runner import (build_eval_step,
@@ -193,17 +193,6 @@ def check_train_config(cfg: Config) -> None:
     check_render_config(cfg.render)
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist (there is no
-    fallback to the CPU: the caller asks for it)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} asked for, but torch finds no CUDA device; "
-            "pass device='cpu' (--device cpu) to run on the CPU")
-    return dev
-
-
 def create_state(cfg: Config, seed: int = 0, device="cuda") -> TrainState:
     """Random parameters drawn from ``seed`` (on the CPU, so every device
     gets the same ones), moved to ``device`` (the card unless the caller
@@ -339,7 +328,6 @@ class Trainer:
     """
 
     BEST_NPZ = "best_params.npz"
-    BEST_JSON = "best_params.json"
 
     def __init__(self, config: Config, device="cuda"):
         cfg = self.config = config
@@ -474,8 +462,7 @@ class Trainer:
                            out: Dict[str, float]) -> None:
         """``best_params.npz`` (JAX's key format, ``step`` and
         ``eval_abs_rel`` inside) whenever eval_abs_rel beats the best
-        export so far; written to a temporary name and renamed, with a
-        json sidecar for the operator."""
+        export so far; written to a temporary name and renamed."""
         cfg = self.config
         if not cfg.train.save_best_params or "eval_abs_rel" not in out:
             return
@@ -494,10 +481,6 @@ class Trainer:
         npz = self._path(self.BEST_NPZ)
         export_params_npz(state.net.state_dict(), npz + ".tmp.npz", meta)
         os.replace(npz + ".tmp.npz", npz)
-        side = self._path(self.BEST_JSON)
-        with open(side + ".tmp", "w") as f:
-            json.dump(meta, f)
-        os.replace(side + ".tmp", side)
 
     def splice_best_layer0(self, state: TrainState) -> TrainState:
         """At the freeze boundary: every layer-0-owned parameter entry from
@@ -548,7 +531,7 @@ class Trainer:
             # export must neither seed the trackers nor be spliced into
             # layer 0, and its jsonl lines must not seed the drift
             # baseline.
-            for name in (self.BEST_NPZ, self.BEST_JSON,
+            for name in (self.BEST_NPZ, "best_params.json",
                          "rollback_state.json"):
                 if os.path.exists(self._path(name)):
                     os.remove(self._path(name))
