@@ -68,12 +68,39 @@ and no result line:
              inputs at both of its shapes (full LDI and layer 0 alone),
              lsi_splat_vjp and the gather kernels on the step's own
              inputs, each held to its plain version (at phases 3, 7 and
-             8's tolerances) and timed beside it and its bound.
+             8's tolerances) and timed beside it, its bound and, for the
+             gathers, F.grid_sample (forward; backward for the grid).
+15. golden-mpi — the MPI baseline on the card (float32, TF32 off) against
+             the JAX numbers in tests/data/torch_golden_mpi_toy.npz:
+             plane_homography, render_mpi values and gradients, the clips'
+             gradient at alphas exactly 0 and 1 (H14), the expected source
+             disparity, and three train steps of the toy mpi_baseline.
+16. mpi    — python -m lsi_tpu_torch.train --config=mpi_baseline,
+             in-process at the preset's widths (D=16, base_filters=16,
+             num_scales=4, bf16, 128x256, batch 8, two-plane scenes), the
+             horizon and the eval and checkpoint boundaries moved into 8
+             steps: launches per step and per eval batch against the
+             table (the D planes warped by one gather), evals with the
+             best export, a resume to step 10, the eval CLI, and the
+             layer-0 freeze refused with ValueError.
+17. options — kitti_ldi3_b16 at its widths (256x768, b16) with
+             loss.candidate_radius=1 and loss.ssim_weight=0.85: 3 steps
+             through make_train_step, launches per step (the 9 candidate
+             gathers are one stacked call), finite loss parts, and the
+             candidate gather held to the plain gather (forward and
+             coordinate VJP) on the step's own inputs.
+18. timing — the MPI step at b8 (ms, steps/s, peak memory) and its eval
+             step per batch; lsi_gather_fwd and K1 in its d_image role on
+             the MPI step's own inputs, each beside its plain version, its
+             bound and F.grid_sample (forward; backward for the input);
+             the b16 step with the loss options in turns with the plain
+             b16 step; the gather kernels on the candidate gathers' own
+             inputs beside grid_sample (forward; backward for the grid).
 
 The line before the last two is {"kernels": [...]}, then the card's name
 and power limit as nvidia-smi prints them, and last
-{"ok": true, "device": {...}}. Each kernel's ``launches`` counts the three
-main paths (phase 5, phase 10 and phase 13, each counted from 0).
+{"ok": true, "device": {...}}. Each kernel's ``launches`` counts the five
+main paths (phases 5, 10, 13, 16 and 17, each counted from 0).
 """
 
 from __future__ import annotations
@@ -95,6 +122,7 @@ import torch
 from lsi_tpu_torch.api import LSIModel
 from lsi_tpu_torch.config import Config, build_config, get_config
 from lsi_tpu_torch.data.pipeline import Batch, batch_stream
+from lsi_tpu_torch.geometry.homography import plane_homography
 from lsi_tpu_torch.geometry.ldi import render_forward
 from lsi_tpu_torch.geometry.transforms import pose_from_euler, translation_pose
 from lsi_tpu_torch.kernels import build, gather_cuda, splat_cuda
@@ -102,6 +130,7 @@ from lsi_tpu_torch.evaluation import runner
 from lsi_tpu_torch.models.convert import (jax_from_state_dict,
                                           state_dict_from_jax)
 from lsi_tpu_torch.models.ldi_predictor import freeze_layer0_grad_mask
+from lsi_tpu_torch.models.mpi import MPI, mpi_source_disparity, render_mpi
 from lsi_tpu_torch.ops.gather import bilinear_sample
 from lsi_tpu_torch.ops.splat import splat_bilinear
 from lsi_tpu_torch.train import trainer as trainer_mod
@@ -115,6 +144,7 @@ REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "data" / "torch_golden_toy.npz"
 GOLDEN_TRAIN = REPO / "tests" / "data" / "torch_golden_train_toy.npz"
 GOLDEN_QUALITY = REPO / "tests" / "data" / "torch_golden_quality_toy.npz"
+GOLDEN_MPI = REPO / "tests" / "data" / "torch_golden_mpi_toy.npz"
 
 # K1 vs plain: both sum float32 atomics, in an order that changes from run
 # to run, so they agree to float32 rounding of the sums, not bitwise.
@@ -183,6 +213,26 @@ STEP_LAUNCHES = {"warmup": {"splat_fwd": 6, "splat_vjp": 4, "gather_fwd": 2,
                  "full": FULL_STEP, "freeze": FULL_STEP}
 EVAL_LAUNCHES = {"splat_fwd": 3, "splat_vjp": 0, "gather_fwd": 0,
                  "gather_bwd_coords": 0}
+
+# The MPI run (phase 16): the preset at its widths, the horizon and the
+# eval and checkpoint boundaries moved into 8 steps. A step warps the B*D
+# planes by one gather, whose backward is one unsnapped K1 (the planes'
+# gradient; the homographies are constants); an eval batch gathers once.
+MPI_SETS = ["train.max_steps=8", "train.eval_every=3", "train.eval_batches=1",
+            "train.checkpoint_every=4", "train.log_every=1"]
+MPI_STEP = {"splat_fwd": 1, "splat_vjp": 0, "gather_fwd": 1,
+            "gather_bwd_coords": 0}
+MPI_EVAL = {"splat_fwd": 0, "splat_vjp": 0, "gather_fwd": 1,
+            "gather_bwd_coords": 0}
+# Golden MPI render values and gradients, as the CPU test holds them.
+MPI_VAL_ATOL = 1e-5
+MPI_GRAD_ATOL_OF_MAX = 1e-4
+# The loss options (phase 17) on kitti_ldi3_b16: the candidate gathers
+# (9 offsets in one stacked gather) and the SSIM mix; one launch of each
+# kernel per step, as without them.
+OPTION_SETS = ["data.dataset=synthetic", "loss.candidate_radius=1",
+               "loss.ssim_weight=0.85"]
+OPTION_STEPS = 3
 
 SPLAT_SHAPE = (8, 512, 768, 4)  # N, L*H, W, C of the flagship render
 OUT_HW = (256, 768)
@@ -452,6 +502,50 @@ def time_gather_fwd(label: str, smi: str, image, coords, iters: int = 20):
     return t, bnd, err, lib
 
 
+def gather_bwd_bound(image, coords, cot):
+    """lsi_gather_bwd_coords' bound: image, coordinates and cotangents read
+    and d_coords written once, against 20 float32 operations per sample
+    and 2C+2 per in-image corner."""
+    _, hi, wi, c = image.shape
+    return bound(nbytes(image, coords, *cot) + nbytes(coords),
+                 20 * coords[..., 0].numel()
+                 + (2 * c + 2) * corners_in_image(coords, hi, wi))
+
+
+def time_gather_bwd(label: str, smi: str, image, coords, gen,
+                    iters: int = 20):
+    """lsi_gather_bwd_coords against the plain coordinate VJP (autograd
+    through bilinear_sample) on these inputs with random cotangents (VJP
+    tolerances), both timed in turns, and F.grid_sample's backward for the
+    grid alone on the same inputs; logs and returns (times, bound, max abs
+    err, grid_sample ms)."""
+    c = image.shape[-1]
+    cot = (torch.randn(coords.shape[:-1] + (c,), generator=gen,
+                       device=image.device),
+           torch.randn(coords.shape[:-1] + (1,), generator=gen,
+                       device=image.device))
+    fns = {
+        "plain": lambda: gather_cuda._plain_coords_vjp(image, coords, *cot),
+        "kernel": lambda: gather_cuda.gather_bwd_coords(image, coords, *cot)}
+    err = check_vjp(f"lsi_gather_bwd_coords {label}", [fns["kernel"]()],
+                    [fns["plain"]()])
+    t, readings = in_turns(fns, iters=iters)
+    img4, grid = grid_sample_args(image, coords)
+    grid = grid.requires_grad_()
+    gs_out = torch.nn.functional.grid_sample(img4, grid, **GS_KW)
+    gs_cot = torch.randn(gs_out.shape, generator=gen, device=image.device)
+    lib = cuda_ms(lambda: torch.autograd.grad(gs_out, grid, gs_cot,
+                                              retain_graph=True), iters=iters)
+    bnd = gather_bwd_bound(image, coords, cot)
+    log("timing", f"{smi} | lsi_gather_bwd_coords {label}: "
+        f"{1e3 * t['kernel']:.1f} us/call {readings['kernel']}, plain "
+        f"(autograd through bilinear_sample) {1e3 * t['plain']:.1f} us/call; "
+        f"grid_sample backward (grid only) {1e3 * lib:.1f} us; bound "
+        f"{1e3 * bnd[0]:.1f} us ({bnd[1]}); max abs err {err:.3e} (rtol "
+        f"{VJP_RTOL}, atol {VJP_ATOL_OF_MAX}*max|ref|)")
+    return t, bnd, err, lib
+
+
 KERNELS = {"splat_fwd": splat_cuda.splat, "splat_vjp": splat_cuda.splat_vjp,
            "gather_fwd": gather_cuda.gather_fwd,
            "gather_bwd_coords": gather_cuda.gather_bwd_coords}
@@ -497,10 +591,11 @@ def golden_serve(dev) -> dict:
     }
 
 
-def golden_train(dev) -> str:
-    """Three steps of the toy kitti_ldi3_b16 on the card against the JAX
-    numbers; returns the summary for the log line."""
-    with np.load(GOLDEN_TRAIN) as g:
+def golden_train(dev, path=GOLDEN_TRAIN, label="golden-train") -> str:
+    """Three steps of a toy config on the card against the JAX numbers in
+    ``path`` (the toy kitti_ldi3_b16, or the toy mpi_baseline); returns
+    the summary for the log line."""
+    with np.load(path) as g:
         golden = {k: g[k] for k in g.files}
 
     def section(prefix):
@@ -521,7 +616,7 @@ def golden_train(dev) -> str:
             for k, v in state_dict_from_jax(section("step1_grads/"),
                                             cfg.model).items()}
     g_max = max(v.abs().max().item() for v in want.values())
-    g_err = max(check_close(f"golden-train grad {k}", grads[k], want[k], 0.0,
+    g_err = max(check_close(f"{label} grad {k}", grads[k], want[k], 0.0,
                             TRAIN_GRAD_ATOL_OF_MAX * g_max) for k in want)
 
     step = make_train_step(cfg)
@@ -534,7 +629,7 @@ def golden_train(dev) -> str:
                     TRAIN_LOSS_RTOL)[i]
             got, ref = float(metrics[k]), float(v[i])
             if not abs(got - ref) <= 1e-7 + rtol * abs(ref):
-                fail(f"golden-train {k} at step {i + 1}: {got} vs JAX {ref} "
+                fail(f"{label} {k} at step {i + 1}: {got} vs JAX {ref} "
                      f"(rtol {rtol})")
             worst[k] = max(worst.get(k, 0.0), abs(got - ref) / max(abs(ref),
                                                                   1e-12))
@@ -551,10 +646,10 @@ def golden_train(dev) -> str:
     mean_ratio = (diff.abs().mean() / moved.abs().mean()).item()
     cosine = ((moved @ mine) / (moved.norm() * mine.norm())).item()
     if diff.abs().max().item() > 1.5 * lr_sum:
-        fail(f"golden-train params: max diff {diff.abs().max().item():.3e} "
+        fail(f"{label} params: max diff {diff.abs().max().item():.3e} "
              f"beyond 1.5 x the step sizes' sum {lr_sum:.3e}")
     if mean_ratio > TRAIN_PARAM_MEAN or cosine < TRAIN_PARAM_COS:
-        fail(f"golden-train params: mean diff / mean move {mean_ratio:.3f}, "
+        fail(f"{label} params: mean diff / mean move {mean_ratio:.3f}, "
              f"cosine {cosine:.4f}")
     return (f"step-1 grads max abs err {g_err:.3e} (max |grad| {g_max:.3e}); "
             "max rel err over 3 steps "
@@ -562,6 +657,76 @@ def golden_train(dev) -> str:
             + f"; params after 3 steps: max diff "
             f"{diff.abs().max().item():.3e}, mean diff / mean move "
             f"{mean_ratio:.4f}, cosine {cosine:.5f}")
+
+
+def golden_mpi(dev) -> str:
+    """The MPI baseline on the card against the JAX numbers: the plane
+    homography, the render and its VJP under a rotation (alphas in (0, 1)
+    and 0) and under the identity pose (alphas exactly 0 and 1, exact
+    samples: both clips at their bounds, H14), the expected source
+    disparity, then three toy train steps. Returns the summary."""
+    with np.load(GOLDEN_MPI) as g:
+        golden = {k: g[k] for k in g.files}
+
+    def section(prefix):
+        return {k[len(prefix):]: v for k, v in golden.items()
+                if k.startswith(prefix)}
+
+    def on(x):
+        return torch.from_numpy(np.array(x)).to(dev)
+
+    def grad_close(name, got, want):
+        return check_close(name, got, on(want), 0.0,
+                           MPI_GRAD_ATOL_OF_MAX * float(np.abs(want).max()))
+
+    hom = section("homography/")
+    h_err = check_close("golden-mpi plane_homography", plane_homography(
+        *(on(hom[k]) for k in ("K_src", "K_trg", "pose", "normal",
+                               "depth"))), on(hom["out"]), 1e-5, 1e-6)
+    keys = ("rgb", "alpha", "disparity")
+    errs, h14 = {}, []
+    for name in ("render", "render_id"):
+        case = section(name + "/")
+        mpi = MPI(on(case["colors"]).requires_grad_(),
+                  on(case["alphas"]).requires_grad_(), on(case["depths"]),
+                  on(case["intrinsics"]))
+        out = render_mpi(mpi, on(case["pose"]))
+        v_err = max(check_close(f"golden-mpi {name} {k}", out[k].detach(),
+                                on(case[k]), 0.0, MPI_VAL_ATOL) for k in keys)
+        grads = torch.autograd.grad([out[k] for k in keys],
+                                    (mpi.colors, mpi.alphas),
+                                    [on(case["g_" + k]) for k in keys])
+        g_err = max(grad_close(f"golden-mpi {name} {k}", g, case[k])
+                    for k, g in zip(("d_colors", "d_alphas"), grads))
+        errs[name] = (v_err, g_err)
+        if name == "render_id":
+            at = on((case["alphas"] == 0) | (case["alphas"] == 1))
+            h14.append(check_close("golden-mpi H14 (warped alphas)",
+                                   grads[1][at], on(case["d_alphas"])[at],
+                                   0.0, 1e-6))
+            ident = case
+    sd = section("srcdisp/")
+    alphas = on(ident["alphas"]).requires_grad_()
+    out = mpi_source_disparity(MPI(on(ident["colors"]), alphas,
+                                   on(ident["depths"]),
+                                   on(ident["intrinsics"])))
+    s_err = check_close("golden-mpi source disparity", out.detach(),
+                        on(sd["out"]), 0.0, MPI_VAL_ATOL)
+    (d_alphas,) = torch.autograd.grad(out, alphas, on(sd["g"]))
+    s_err = max(s_err, grad_close("golden-mpi source disparity d_alphas",
+                                  d_alphas, sd["d_alphas"]))
+    at = on((ident["alphas"] == 0) | (ident["alphas"] == 1))
+    h14.append(check_close("golden-mpi H14 (source alphas)", d_alphas[at],
+                           on(sd["d_alphas"])[at], 0.0, 1e-6))
+    train = golden_train(dev, GOLDEN_MPI, "golden-mpi")
+    return (f"plane_homography max abs err {h_err:.3e}; render (rotation) "
+            f"values {errs['render'][0]:.3e}, VJP {errs['render'][1]:.3e}; "
+            f"render (identity, alphas exactly 0 and 1) values "
+            f"{errs['render_id'][0]:.3e}, VJP {errs['render_id'][1]:.3e}; "
+            f"source disparity {s_err:.3e}; H14: the alphas' gradient at "
+            f"exactly 0 and 1 within {max(h14):.3e} of JAX's ({int(at.sum())} "
+            f"source entries; warped and source clips); toy mpi_baseline "
+            "train steps: " + train)
 
 def golden_quality(dev) -> str:
     """Two steps of the toy two-prediction (quality) step on the card
@@ -912,29 +1077,235 @@ def quality_timing(dev, smi: str) -> dict:
     t, bnd, err, lib = time_gather_fwd("on the b8 quality step's own inputs",
                                        smi, image, gcoords)
     out["gather_fwd"] = (t, bnd, err, lib)
-    _, hi, wi, ci = image.shape
-    g_cot = (torch.randn(gcoords.shape[:-1] + (ci,), generator=gen,
-                         device=dev),
-             torch.randn(gcoords.shape[:-1] + (1,), generator=gen,
-                         device=dev))
-    fns = {
-        "plain": lambda: gather_cuda._plain_coords_vjp(image, gcoords,
-                                                       *g_cot),
-        "kernel": lambda: gather_cuda.gather_bwd_coords(image, gcoords,
-                                                        *g_cot)}
-    err = check_vjp("lsi_gather_bwd_coords on the b8 quality step's own "
-                    "inputs", [fns["kernel"]()], [fns["plain"]()])
-    t, readings = in_turns(fns, iters=20)
-    bnd = bound(nbytes(image, gcoords, *g_cot) + nbytes(gcoords),
-                20 * gcoords[..., 0].numel()
-                + (2 * ci + 2) * corners_in_image(gcoords, hi, wi))
-    out["gather_bwd_coords"] = (t, bnd, err, None)
-    log("timing", f"{smi} | lsi_gather_bwd_coords on the b8 quality step's "
-        f"own inputs: {1e3 * t['kernel']:.1f} us/call {readings['kernel']}, "
-        f"plain {1e3 * t['plain']:.1f} us/call; bound {1e3 * bnd[0]:.1f} "
-        f"us; max abs err {err:.3e} (rtol {VJP_RTOL}, atol "
-        f"{VJP_ATOL_OF_MAX}*max|ref|)")
+    out["gather_bwd_coords"] = time_gather_bwd(
+        "on the b8 quality step's own inputs", smi, image, gcoords, gen)
     return out
+
+
+def mpi_run(dev, workdir: Path) -> str:
+    """Phase 16: the training CLI on mpi_baseline at its widths, its resume,
+    the eval CLI, and the refused layer-0 freeze; returns the summary."""
+    ckpt = workdir / "mpi_run"
+    sets = MPI_SETS + [f"train.checkpoint_dir={ckpt}"]
+    cfg = build_config("mpi_baseline", sets)
+    torch.cuda.reset_peak_memory_stats()
+    with tracing_trainer() as events:
+        state, _ = train_main(["--config=mpi_baseline", "--set", *sets])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = [e[1] for e in events if e[0] == "step"]
+    runs = [e for e in events if e[0] == "run"]
+    evals = [e for e in events if e[0] == "eval"]
+    if steps != list(range(8)) or [r[1] for r in runs] != ["full"] * 8:
+        fail(f"mpi: steps {steps}, phases {[r[1] for r in runs]}")
+    for i, (_, _, launched, _) in enumerate(runs):
+        if launched != MPI_STEP:
+            fail(f"mpi: step {i + 1} launched {launched}, expected {MPI_STEP}")
+    if [e[1] for e in evals] != [3, 6, 8] or any(e[2] != MPI_EVAL
+                                                 for e in evals):
+        fail(f"mpi: evals {[(e[1], e[2]) for e in evals]}")
+    with open(ckpt / "train.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    train_lines = [r for r in lines if "total" in r]
+    parts = ("photo_mpi", "alpha_coverage", "smoothness", "total",
+             "grad_norm")
+    if [r["step"] for r in train_lines] != list(range(1, 9)) or not all(
+            np.isfinite(r[k]) for r in train_lines for k in parts):
+        fail(f"mpi: train lines {train_lines}")
+    abs_rel = {r["step"]: r["eval_abs_rel"] for r in lines
+               if "eval_abs_rel" in r}
+    coverage = [r["eval_coverage"] for r in lines if "eval_coverage" in r]
+    if sorted(abs_rel) != [3, 6, 8] or not all(
+            np.isfinite(v) for v in list(abs_rel.values()) + coverage):
+        fail(f"mpi: eval_abs_rel at {abs_rel}, coverage {coverage}")
+    best = ckpt / "best_params.npz"
+    meta = read_params_npz_meta(str(best))
+    with np.load(best) as data:
+        keys = {k for k in data.files if not k.startswith("__meta_")}
+    if keys != set(jax_from_state_dict(state.net.state_dict())) or not any(
+            k.startswith("mpi_head/") for k in keys):
+        fail("mpi: best_params.npz is not the MPI's params in the JAX "
+             "package's key format")
+    if meta.get("eval_abs_rel") != min(abs_rel.values()):
+        fail(f"mpi: best export meta {meta} vs evals {abs_rel}")
+    import_params_npz(cfg.model, str(best))
+
+    with tracing_trainer() as events:
+        state, _ = train_main(["--config=mpi_baseline", "--set", *sets,
+                               "train.max_steps=10"])
+    steps = [e[1] for e in events if e[0] == "step"]
+    if steps != [8, 9] or state.step != 10:
+        fail(f"mpi resume: steps {steps}, final step {state.step}")
+
+    before = counts()
+    results = runner.main(["--config=mpi_baseline", "--set", *sets,
+                           "--num_batches", "2", "--image_dir",
+                           str(workdir / "mpi_images")])
+    eval_cli = {k: v - before[k] for k, v in counts().items()}
+    png = workdir / "mpi_images" / "eval_grid.png"
+    if (eval_cli != {k: 2 * v for k, v in MPI_EVAL.items()}
+            or not png.read_bytes().startswith(b"\x89PNG")
+            or not all(np.isfinite(v) for v in results.values())):
+        fail(f"mpi eval CLI: {results}, launches {eval_cli}")
+    try:
+        train_main(["--config=mpi_baseline", "--set", *sets,
+                    f"train.checkpoint_dir={workdir / 'mpi_freeze'}",
+                    "train.freeze_layer0_step=4"])
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("mpi: train.freeze_layer0_step=4 was not refused")
+    last = train_lines[-1]
+    return (f"8 steps, launches per step {runs[0][2]}, per eval batch "
+            f"{evals[0][2]}; step 8 " + ", ".join(
+                f"{k} {last[k]:.5f}" for k in parts)
+            + f"; eval_abs_rel {abs_rel}, eval_coverage {coverage}; best "
+            f"export step {meta['step']}; resumed at step 8 to 10; peak "
+            f"memory {peak:.2f} GiB; eval CLI: abs_rel "
+            f"{results['abs_rel']:.4f}, psnr {results['psnr']:.3f}, "
+            f"psnr_full {results['psnr_full']:.3f}, coverage "
+            f"{results['coverage']:.4f}, launches {eval_cli}; "
+            f"freeze_layer0_step=4 refused: ValueError({refused!r})")
+
+
+def loss_options_run(dev):
+    """Phase 17: kitti_ldi3_b16 with the candidate gathers and the SSIM mix
+    for OPTION_STEPS steps; the candidate gather on the step's own inputs
+    held to the plain gather. Returns (summary, launches, the max abs errs
+    of the two gather kernels, what phase 18 times)."""
+    cfg = build_config("kitti_ldi3_b16", OPTION_SETS)
+    state = create_state(cfg, seed=0, device=dev)
+    step = make_train_step(cfg)
+    stream = batch_stream(cfg.data, seed=0, device=dev)
+    batches = [next(stream) for _ in range(OPTION_STEPS)]
+    torch.cuda.synchronize()
+    reset_counts()
+    per_step, history = [], []
+    for i, batch in enumerate(batches):
+        before = counts()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        per_step.append({k: v - before[k] for k, v in counts().items()})
+        history.append({k: float(v) for k, v in metrics.items()})
+        if not all(np.isfinite(v) for v in history[-1].values()):
+            fail(f"options step {i + 1}: non-finite metrics {history[-1]}")
+    launched = counts()
+    if any(c != {name: 1 for name in KERNELS} for c in per_step):
+        fail(f"options: launches per step {per_step}, expected one each")
+    with recording() as calls:
+        step(state, batches[0])
+    image, coords = calls["gather_fwd"][0]
+    n, h, w, _ = image.shape
+    if tuple(coords.shape) != (n, 9 * cfg.model.num_layers * h, w, 2):
+        fail(f"options: the candidate gather's coordinates are "
+             f"{tuple(coords.shape)}")
+    got = gather_cuda.gather_fwd(image, coords)
+    ref = bilinear_sample(image, coords)
+    fwd_err = max(check_close(f"candidate gather {k}", g, r, 1e-5, 1e-6)
+                  for k, g, r in zip(("sampled", "valid"), got, ref))
+    del got, ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cot = (torch.randn(coords.shape[:-1] + (3,), generator=gen, device=dev),
+           torch.randn(coords.shape[:-1] + (1,), generator=gen, device=dev))
+    bwd_err = check_vjp("candidate gather d_coords",
+                        [gather_cuda.gather_bwd_coords(image, coords, *cot)],
+                        [gather_cuda._plain_coords_vjp(image, coords, *cot)])
+    del cot
+    summary = (f"kitti_ldi3_b16 at {n}x{h}x{w} with {OPTION_SETS[1:]}: "
+               f"{OPTION_STEPS} steps; launches per step {per_step[0]}; "
+               "metrics " + "; ".join(
+                   ", ".join(f"{k} {v:.5f}" for k, v in sorted(m.items()))
+                   for m in history)
+               + f"; the candidate gather on the step's own inputs (image "
+               f"{tuple(image.shape)}, coords {tuple(coords.shape)}) vs the "
+               f"plain gather: sampled/valid max abs err {fwd_err:.3e}, "
+               f"d_coords {bwd_err:.3e}")
+    return (summary, launched, {"gather_fwd": fwd_err,
+                                "gather_bwd_coords": bwd_err},
+            (cfg, state, batches[0], image, coords))
+
+
+def mpi_timing(dev, smi: str) -> dict:
+    """Phase 18, MPI half: the MPI step and eval step at b8, then
+    lsi_gather_fwd and K1 (the planes' gradient) on the step's own inputs;
+    returns {name: max abs err}."""
+    cfg = get_config("mpi_baseline")
+    b, h, w = cfg.data.batch_size, cfg.data.height, cfg.data.width
+    state = create_state(cfg, seed=0, device=dev)
+    step = make_train_step(cfg)
+    batch = next(batch_stream(cfg.data, seed=0, device=dev))
+    eval_batch = next(batch_stream(runner.eval_data_config(cfg.data), seed=1,
+                                   device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, batch), iters=10)
+    log("timing", f"{smi} | mpi_baseline step b{b} {h}x{w} "
+        f"(D={cfg.model.num_planes}): {ms:.3f} ms ({1e3 / ms:.3f} steps/s, "
+        f"{1e3 * b / ms:.1f} examples/s); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    eval_step = runner.build_eval_step(cfg)
+    ms = cuda_ms(lambda: eval_step(state.net, eval_batch), iters=10)
+    log("timing", f"{smi} | mpi_baseline eval step b{b} {h}x{w}: {ms:.3f} ms "
+        "per batch")
+    with recording() as calls:
+        step(state, batch)
+    del state, batch, eval_batch
+    if [len(v) for v in calls.values()] != [1, 1]:
+        fail(f"one MPI step recorded {[len(v) for v in calls.values()]} "
+             "K1 and gather launches")
+    image, coords = calls["gather_fwd"][0]
+    _, _, g_err, _ = time_gather_fwd("on the b8 mpi_baseline step's own "
+                                     "inputs (B*D planes)", smi, image, coords)
+    values, kcoords, weights, out_hw, snap = calls["splat_fwd"][0]
+    if snap or tuple(values.shape) != tuple(coords.shape[:-1]) + (4,):
+        fail(f"the MPI step's K1 launch is not the planes' gradient: "
+             f"snap {snap}, values {tuple(values.shape)}")
+    _, _, k_err = time_k1("on the b8 mpi_baseline step's own inputs (the "
+                          "planes' gradient, unsnapped)", smi,
+                          *calls["splat_fwd"][0])
+    # The library call computing the same function: grid_sample's backward
+    # for its input, with the same cotangent.
+    img = image.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    _, hi, wi, _ = image.shape
+    scale = torch.tensor([2.0 / (wi - 1), 2.0 / (hi - 1)], device=dev)
+    grid = (coords * scale - 1.0).contiguous()
+    gs_out = torch.nn.functional.grid_sample(img, grid, **GS_KW)
+    gs_cot = values.permute(0, 3, 1, 2)
+    lib = cuda_ms(lambda: torch.autograd.grad(gs_out, img, gs_cot,
+                                              retain_graph=True), iters=20)
+    (lib_grad,) = torch.autograd.grad(gs_out, img, gs_cot)
+    diff = (lib_grad.permute(0, 2, 3, 1)
+            - splat_cuda.splat(values, kcoords, weights, out_hw,
+                               snap=False)[0]).abs().max().item()
+    log("timing", f"{smi} | grid_sample backward (input only) on the same "
+        f"inputs: {1e3 * lib:.1f} us; its gradient vs K1's accum: max abs "
+        f"diff {diff:.3e}")
+    return {"gather_fwd": g_err, "splat_fwd": k_err}
+
+
+def options_timing(dev, smi: str, recorded) -> dict:
+    """Phase 18, loss-options half: the b16 step with the options in turns
+    with the plain b16 step, then both gather kernels on the candidate
+    gathers' own inputs; returns {name: max abs err}."""
+    cfg, state, batch, image, coords = recorded
+    steps = {"plain": make_train_step(build_config("kitti_ldi3_b16",
+                                                   OPTION_SETS[:1])),
+             "kernel": make_train_step(cfg)}
+    fns = {k: (lambda fn=fn: fn(state, batch)) for k, fn in steps.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t, readings = in_turns(fns, iters=5)
+    b = batch.src_image.shape[0]
+    log("timing", f"{smi} | train step kitti_ldi3_b16 b{b} with "
+        f"{OPTION_SETS[1:]}: {t['kernel']:.3f} ms ({1e3 / t['kernel']:.3f} "
+        f"steps/s) {readings['kernel']}; without them (in turns) "
+        f"{t['plain']:.3f} ms {readings['plain']}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state, batch
+    label = "on the b16 step's candidate gathers (9 offsets stacked)"
+    _, _, f_err, _ = time_gather_fwd(label, smi, image, coords)
+    _, _, b_err, _ = time_gather_bwd(label, smi, image, coords,
+                                     torch.Generator(device=dev).manual_seed(7))
+    return {"gather_fwd": f_err, "gather_bwd_coords": b_err}
 
 
 def main() -> None:
@@ -1229,8 +1600,6 @@ def main() -> None:
     # align_corners=True) on [image, 1], which gives sampled and valid: at
     # random +-40 px, then on the b16 step's own inputs.
     image, gcoords = g_in
-    ni, hi, wi, ci = image.shape
-    g_corners = corners_in_image(gcoords, hi, wi)
     t, bnd, _, lib_fwd = time_gather_fwd("at random +-40 px", smi, image,
                                          gcoords)
     kernels["gather_fwd"] = dict(
@@ -1241,37 +1610,14 @@ def main() -> None:
         *train_calls["gather_fwd"][0])
     kernels["gather_fwd"]["err"] = max(fwd_err, err)
     del train_calls
-    img4, grid = grid_sample_args(image, gcoords)
-    gs = torch.nn.functional.grid_sample
-    t, readings = in_turns({
-        "plain": lambda: gather_cuda._plain_coords_vjp(image, gcoords,
-                                                       *g_cot),
-        "kernel": lambda: gather_cuda.gather_bwd_coords(image, gcoords,
-                                                        *g_cot)}, iters=20)
-    grid_r = grid.clone().requires_grad_()
-    gs_out = gs(img4, grid_r, **GS_KW)
-    gs_cot = torch.randn_like(gs_out)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(gs_out, grid_r, gs_cot,
-                                                  retain_graph=True),
-                      iters=20)
-    grid_r2 = grid.clone().requires_grad_()
-    lib_both = cuda_ms(lambda: torch.autograd.grad(
-        gs(img4, grid_r2, **GS_KW), grid_r2, gs_cot), iters=20)
+    t, bnd, err, lib_bwd = time_gather_bwd(
+        "at random +-40 px", smi, image, gcoords,
+        torch.Generator(device=dev).manual_seed(8))
     kernels["gather_bwd_coords"] = dict(
-        replaces="lsi_tpu/kernels/gather_pallas.py:104", t=t,
-        bound=bound(nbytes(image, gcoords, *g_cot) + nbytes(gcoords),
-                    20 * gcoords[..., 0].numel()
-                    + (2 * ci + 2) * g_corners),
-        err=bwd_err, library=lib_bwd)
-    log("timing", f"{smi} | lsi_gather_bwd_coords at the same shapes: "
-        f"{1e3 * t['kernel']:.1f} us/call {readings['kernel']}, plain "
-        f"(autograd through bilinear_sample) {1e3 * t['plain']:.1f} "
-        f"us/call; grid_sample backward "
-        f"(grid only) {1e3 * lib_bwd:.1f} us, forward+backward "
-        f"{1e3 * lib_both:.1f} us; bound "
-        f"{1e3 * kernels['gather_bwd_coords']['bound'][0]:.1f} us")
+        replaces="lsi_tpu/kernels/gather_pallas.py:104", t=t, bound=bnd,
+        err=max(bwd_err, err), library=lib_bwd)
 
-    del image, gcoords, g_in, g_cot, img4, grid, grid_r, grid_r2, gs_out
+    del image, gcoords, g_in, g_cot
 
     # 12. Golden quality: the two-prediction step against JAX's numbers.
     summary = with_tf32_off(lambda: golden_quality(dev))
@@ -1301,8 +1647,43 @@ def main() -> None:
     for name in ("splat_vjp", "gather_fwd", "gather_bwd_coords"):
         kernels[name]["err"] = max(kernels[name]["err"], quality[name][2])
 
+    # 15. Golden MPI: the MPI baseline against JAX's numbers, H14.
+    summary = with_tf32_off(lambda: golden_mpi(dev))
+    log("golden-mpi", "toy mpi_baseline (D=4, 2x16x64, float32, TF32 off) "
+        "on CUDA vs JAX (CPU): " + summary)
+
+    # 16. The MPI baseline through the training and eval CLIs.
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO / "_scratch"))
+    try:
+        reset_counts()
+        summary = mpi_run(dev, workdir)
+        mpi_counts = counts()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("mpi", f"mpi_baseline at {MPI_SETS}: " + summary
+        + f"; launches in all {mpi_counts}")
+    for name in ("splat_fwd", "gather_fwd"):
+        if mpi_counts[name] == 0:
+            fail(f"{name} was not launched by the MPI run")
+
+    # 17. The loss options on the b16 training step.
+    summary, option_counts, errs, recorded = loss_options_run(dev)
+    log("options", summary + f"; launches in all {option_counts}")
+    for name, err in errs.items():
+        kernels[name]["err"] = max(kernels[name]["err"], err)
+
+    # 18. Timing: the MPI step, the kernels' new roles, the options.
+    errs = mpi_timing(dev, smi)
+    max_err = max(max_err, errs["splat_fwd"])
+    kernels["gather_fwd"]["err"] = max(kernels["gather_fwd"]["err"],
+                                       errs["gather_fwd"])
+    for name, err in options_timing(dev, smi, recorded).items():
+        kernels[name]["err"] = max(kernels[name]["err"], err)
+    del recorded
+
     total = {name: serve_counts[name] + train_counts[name]
-             + quality_counts[name] for name in KERNELS}
+             + quality_counts[name] + mpi_counts[name] + option_counts[name]
+             for name in KERNELS}
     entries = [{
         "name": "splat_fwd", "route": "cuda",
         "source": "lsi_tpu_torch/csrc/splat_fwd.cu",

@@ -18,7 +18,7 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    family: str = "ldi"             # "ldi" | "mpi" (only "ldi" is ported).
+    family: str = "ldi"             # "ldi" | "mpi" (layered planes).
     num_layers: int = 2
     base_filters: int = 32
     num_scales: int = 5

@@ -1,19 +1,21 @@
 """Evaluation runner: view-synthesis and depth metrics over the held-out
 split.
 
-PyTorch counterpart of ``lsi_tpu/evaluation/runner.py`` for the LDI
-family: restore a checkpoint, predict an LDI from each held-out source
-image, render it into the paired view, and score PSNR and SSIM against
-the target (masked to rendered coverage), layer-0 depth where ground
-truth exists, and the disoccluded region where the target's ground truth
-exists; average, and export an image grid (src | trg | render |
-disparity) as a PNG.
+PyTorch counterpart of ``lsi_tpu/evaluation/runner.py``: restore a
+checkpoint, predict an LDI (or, for the MPI baseline, an MPI) from each
+held-out source image, render it into the paired view, and score PSNR and
+SSIM against the target (masked to rendered coverage: splat weight > 0
+for an LDI, accumulated alpha > 0.5 for an MPI), depth where ground truth
+exists (an LDI's layer 0, an MPI's expected source disparity), and, for
+an LDI, the disoccluded region where the target's ground truth exists;
+average, and export an image grid (src | trg | render | disparity) as a
+PNG.
 
     python -m lsi_tpu_torch.evaluation.runner --config=kitti_ldi3_quality \
         --set train.checkpoint_dir=/path/to/run --num_batches 16
 
-Not ported yet: ``--trajectory_gif`` (ROADMAP Queue 1, item 6: M10's
-``trajectory`` and ``video``) and the MPI family (item 7, M11).
+Not ported yet: ``--trajectory_gif`` (ROADMAP Queue 1: M10's
+``trajectory`` and ``video``).
 """
 
 from __future__ import annotations
@@ -33,23 +35,26 @@ from lsi_tpu_torch.config import PRESETS, Config, DataConfig, build_config
 from lsi_tpu_torch.data.pipeline import Batch, batch_stream, decode_batch
 from lsi_tpu_torch.evaluation.metrics import depth_metrics, psnr, ssim
 from lsi_tpu_torch.evaluation.occlusion import occlusion_metrics
-from lsi_tpu_torch.geometry.ldi import LDI, render_forward
-from lsi_tpu_torch.models.ldi_predictor import LDIPredictor
+from lsi_tpu_torch.geometry.ldi import render_forward
+from lsi_tpu_torch.models import build_model
+from lsi_tpu_torch.models.mpi import MPI, mpi_source_disparity, render_mpi
 from lsi_tpu_torch.train.checkpoint import CheckpointManager
 
 
 def build_eval_step(cfg: Config):
-    """``eval_step(net, batch) -> (metrics, rendered rgb, ldi)``: metrics
-    are 0-d tensors; ``occ_*`` metrics whenever the batch carries the
-    target's ground-truth disparity. Runs without autograd."""
-    if cfg.model.family != "ldi":
-        raise NotImplementedError(
-            f"model family {cfg.model.family!r} is not ported yet (ROADMAP "
-            "Queue 1, item 7: M11)")
+    """``eval_step(net, batch) -> (metrics, rendered rgb, prediction)``:
+    metrics are 0-d tensors. An LDI's carry ``occ_*`` metrics whenever the
+    batch carries the target's ground-truth disparity; an MPI's
+    (``model.family="mpi"``) are psnr and ssim where the accumulated alpha
+    exceeds 0.5, ``psnr_full``, ``coverage`` (the mean accumulated alpha)
+    and the depth metrics of its expected source disparity. Runs without
+    autograd."""
+    if cfg.model.family == "mpi":
+        return _eval_step_mpi
     zscale = cfg.render.zbuffer_scale
 
     @torch.no_grad()
-    def eval_step(net: LDIPredictor, batch: Batch):
+    def eval_step(net: torch.nn.Module, batch: Batch):
         batch = decode_batch(batch)
         ldi = net(batch.src_image, batch.intrinsics)
         out = render_forward(ldi, batch.pose_src2trg,
@@ -76,6 +81,25 @@ def build_eval_step(cfg: Config):
     return eval_step
 
 
+@torch.no_grad()
+def _eval_step_mpi(net: torch.nn.Module, batch: Batch):
+    batch = decode_batch(batch)
+    mpi = net(batch.src_image, batch.intrinsics)
+    out = render_mpi(mpi, batch.pose_src2trg,
+                     out_hw=tuple(batch.trg_image.shape[1:3]))
+    covered = (out["alpha"] > 0.5).float()
+    metrics = {
+        "psnr": psnr(out["rgb"], batch.trg_image, mask=covered),
+        "psnr_full": psnr(out["rgb"], batch.trg_image),
+        "ssim": ssim(out["rgb"], batch.trg_image, mask=covered),
+        "coverage": out["alpha"].mean(),
+    }
+    if batch.gt_disparity is not None and batch.gt_valid is not None:
+        metrics.update(depth_metrics(mpi_source_disparity(mpi),
+                                     batch.gt_disparity, batch.gt_valid))
+    return metrics, out["rgb"], mpi
+
+
 def eval_data_config(data_cfg: DataConfig) -> DataConfig:
     """The held-out, unaugmented view of a training data config."""
     return dataclasses.replace(data_cfg, augment=False, split="val")
@@ -87,7 +111,7 @@ def to_floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return dict(zip(metrics, vals.tolist()))
 
 
-def evaluate(cfg: Config, net: LDIPredictor, num_batches: int = 16,
+def evaluate(cfg: Config, net: torch.nn.Module, num_batches: int = 16,
              image_dir: Optional[str] = None, seed: int = 1234,
              device="cuda") -> Dict[str, float]:
     """Average the eval metrics over ``num_batches`` held-out batches."""
@@ -96,11 +120,11 @@ def evaluate(cfg: Config, net: LDIPredictor, num_batches: int = 16,
     sums: Dict[str, float] = {}
     for i in range(num_batches):
         batch = next(it)
-        metrics, rendered, ldi = eval_step(net, batch)
+        metrics, rendered, pred = eval_step(net, batch)
         for k, v in to_floats(metrics).items():
             sums[k] = sums.get(k, 0.0) + v
         if image_dir is not None and i == 0:
-            export_image_grid(batch, rendered, ldi, image_dir)
+            export_image_grid(batch, rendered, pred, image_dir)
     return {k: v / num_batches for k, v in sums.items()}
 
 
@@ -122,10 +146,19 @@ def write_png(path: str, rgb: np.ndarray) -> None:
                 + chunk(b"IEND", b""))
 
 
-def export_image_grid(batch: Batch, rendered: torch.Tensor, pred: LDI,
+def _pred_disparity(pred) -> torch.Tensor:
+    """(B, H, W) display disparity of either family's prediction: an LDI's
+    layer 0, an MPI's expected source disparity."""
+    if isinstance(pred, MPI):
+        return mpi_source_disparity(pred)[..., 0]
+    return pred.disparities[:, 0, ..., 0]
+
+
+def export_image_grid(batch: Batch, rendered: torch.Tensor, pred,
                       out_dir: str, max_rows: int = 4) -> None:
     """``<out_dir>/eval_grid.png``: one row per example, src | trg |
-    render | layer-0 disparity (grey, scaled by the batch's maximum)."""
+    render | disparity (:func:`_pred_disparity`, grey, scaled by the
+    batch's maximum)."""
     os.makedirs(out_dir, exist_ok=True)
 
     def dec(x):
@@ -135,7 +168,7 @@ def export_image_grid(batch: Batch, rendered: torch.Tensor, pred: LDI,
     src = dec(batch.src_image)
     trg = dec(batch.trg_image)
     ren = np.clip(dec(rendered), 0, 1)
-    disp = dec(pred.disparities[:, 0, ..., 0])
+    disp = dec(_pred_disparity(pred))
     disp = disp / max(disp.max(), 1e-6)
     rows = [np.concatenate([src[i], trg[i], ren[i],
                             np.repeat(disp[i][..., None], 3, axis=-1)],
@@ -161,7 +194,7 @@ def main(argv=None) -> Dict[str, float]:
 
     raw = CheckpointManager(cfg.train.checkpoint_dir,
                             cfg.train.max_to_keep).restore_raw()
-    net = LDIPredictor(cfg.model)
+    net = build_model(cfg.model)
     net.reset_parameters(torch.Generator().manual_seed(0))
     net = net.to(device)
     if raw is None:

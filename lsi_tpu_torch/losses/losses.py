@@ -2,21 +2,23 @@
 cross-view depth consistency.
 
 PyTorch counterpart of ``lsi_tpu/losses/losses.py``: the inverse-warp
-photometric loss with the per-pixel min over layers, the splat-composite
-photometric loss, edge-aware disparity smoothness, depth supervision,
-``total_loss``, and the two-prediction terms ``depth_consistency`` and
-``total_loss_bidirectional``.
+photometric loss with the per-pixel min over layers (and over candidate
+offsets, ``candidate_radius``), the splat-composite photometric loss (with
+SSIM mixed in, ``ssim_weight``), edge-aware disparity smoothness, depth
+supervision, ``total_loss``, the two-prediction terms
+``depth_consistency`` and ``total_loss_bidirectional``, and the MPI
+baseline's ``mpi_smoothness`` and ``mpi_total_loss``.
 
 Gradients match JAX's where values tie: ``amin``/``amax`` split the
 gradient equally among equal entries, as ``jnp.min``/``jnp.max`` do
-(``torch.min(dim=...)`` would give it all to one). Ties are common: an
+(``torch.min(dim=...)`` would give it all to one), and
+``torch.minimum``/``torch.maximum`` give half to each of two equal
+arguments, as ``jnp.minimum``/``jnp.maximum`` do. Ties are common: an
 invalid layer carries the same large error as every other invalid layer,
 and ``valid`` is 1.0 in every layer that lands inside the image.
 
-Not ported yet (raise ``NotImplementedError``): ``ssim_weight > 0`` and
-``candidate_radius > 0`` (ROADMAP Queue 1, items 1 and 2). The refuted
-knobs ``photo_layer0_weight``, ``consistency_ema_teacher`` and
-``consistency_stop_step`` are not ported (ROADMAP "Do not port").
+The refuted knobs ``photo_layer0_weight``, ``consistency_ema_teacher``
+and ``consistency_stop_step`` are not ported (ROADMAP "Do not port").
 """
 
 from __future__ import annotations
@@ -27,9 +29,12 @@ from typing import Dict, Optional
 import torch
 
 from lsi_tpu_torch.config import LossConfig, RenderConfig
+from lsi_tpu_torch.evaluation.metrics import ssim
 from lsi_tpu_torch.evaluation.occlusion import disocclusion_mask
 from lsi_tpu_torch.geometry.ldi import (LDI, gather_target_per_layer_folded,
-                                        render_forward)
+                                        project_layers_folded, render_forward)
+from lsi_tpu_torch.kernels.gather_cuda import GatherFn
+from lsi_tpu_torch.models.mpi import MPI, mpi_source_disparity, render_mpi
 from lsi_tpu_torch.geometry.transforms import invert_pose
 from lsi_tpu_torch.utils.helpers import divide_safe
 
@@ -42,14 +47,6 @@ def check_loss_config(loss_cfg: LossConfig) -> None:
     """Reject the loss options the port does not implement."""
     if loss_cfg.photo_mode not in ("inverse_warp", "splat", "both"):
         raise ValueError(f"unknown photo_mode {loss_cfg.photo_mode!r}")
-    if loss_cfg.ssim_weight > 0:
-        raise NotImplementedError(
-            "ssim_weight > 0 in the splat loss is not ported yet (ROADMAP "
-            "Queue 1, item 1; evaluation.metrics.ssim exists)")
-    if loss_cfg.candidate_radius > 0:
-        raise NotImplementedError(
-            "candidate_radius > 0 is not ported yet (ROADMAP Queue 1, "
-            "item 2)")
     for knob in ("photo_layer0_weight", "consistency_ema_teacher",
                  "consistency_stop_step"):
         if getattr(loss_cfg, knob):
@@ -58,39 +55,96 @@ def check_loss_config(loss_cfg: LossConfig) -> None:
                 "'Do not port')")
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with the gradient 1 at x == 0, as ``jnp.abs`` has (``torch.abs``
+    has 0 there; ROADMAP H15). Neighbouring disparities are exactly equal
+    wherever a sigmoid saturates, so the smoothness terms meet x == 0."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _charbonnier(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     """Smooth L1; gradient-stable at 0."""
     return torch.sqrt(x * x + eps * eps)
+
+
+def _candidate_errors(ldi: LDI, target_image: torch.Tensor,
+                      pose_src2trg: torch.Tensor,
+                      K_trg: Optional[torch.Tensor], tex: torch.Tensor,
+                      radius: int):
+    """The inverse warp's per-layer error with ``candidate_radius`` r: the
+    min over the (2r+1)^2 integer offsets around each projection of the
+    masked Charbonnier error, and the max of ``valid``.
+
+    The offsets' coordinates are stacked along the folded rows, so ONE
+    gather samples every candidate (one launch of each gather kernel, the
+    coordinates' gradient summed back over the offsets). The min and max
+    are taken offset by offset (dy outer, dx inner), as the reference
+    takes them, so ties split their gradient the same way.
+
+    Returns (err_masked (B*L, H, W, 1), valid (B*L, H, W, 1)).
+    """
+    b, l, h, w, _ = ldi.textures.shape
+    trg_coords, _, in_front = project_layers_folded(ldi, pose_src2trg, K_trg)
+    offsets = torch.tensor(
+        [[dx, dy] for dy in range(-radius, radius + 1)
+         for dx in range(-radius, radius + 1)],
+        dtype=torch.float32, device=trg_coords.device)
+    k = offsets.shape[0]
+    coords = (trg_coords.reshape(b, 1, l * h, w, 2)
+              + offsets[None, :, None, None, :]).reshape(b, k * l * h, w, 2)
+    sampled, in_bounds = GatherFn.apply(target_image.float().contiguous(),
+                                        coords.contiguous())
+
+    def per_offset(x):  # (B, K*L*H, W, C) -> (K, B*L, H, W, C)
+        return x.reshape(b, k, l, h, w, -1).transpose(0, 1).reshape(
+            k, b * l, h, w, -1)
+
+    sampled, in_bounds = per_offset(sampled), per_offset(in_bounds)
+    err_masked = valid = None
+    for i in range(k):
+        v = in_front * in_bounds[i]
+        e = _charbonnier(sampled[i] - tex).mean(-1, keepdim=True)
+        e = torch.where(v > 0.5, e, BIG_ERROR)
+        err_masked = e if err_masked is None else torch.minimum(err_masked, e)
+        valid = v if valid is None else torch.maximum(valid, v)
+    return err_masked, valid
 
 
 def view_synthesis_inverse_warp(ldi: LDI, target_image: torch.Tensor,
                                 pose_src2trg: torch.Tensor,
                                 K_trg: Optional[torch.Tensor] = None,
                                 min_over_layers: bool = True,
+                                candidate_radius: int = 0,
                                 layer0_margin: float = 0.0,
                                 return_diag: bool = False):
-    """Gather-direction photometric loss, per-pixel min over layers (one
-    sample per layer: ``candidate_radius`` 0).
+    """Gather-direction photometric loss, per-pixel min over layers.
 
     For each source pixel and layer, samples the target image at the
     layer's projection and compares it with the layer's texture. Samples
     outside the view get ``BIG_ERROR`` so the min ignores them, and pixels
-    invalid in every layer are masked out. With ``return_diag``, returns
-    ``(loss, {})``: the port's gather has no window to diagnose.
+    invalid in every layer are masked out. With ``candidate_radius`` r > 0
+    the error is also the min over the (2r+1)^2 integer-offset samples
+    around each projection (it forgives sub-pixel correspondence error).
+    With ``return_diag``, returns ``(loss, {})``: the port's gather has no
+    window to diagnose.
     """
     b, l, h, w, _ = ldi.textures.shape
     tex = ldi.textures.float().reshape(b * l, h, w, 3)
-    sampled, valid, _ = gather_target_per_layer_folded(
-        ldi, target_image, pose_src2trg, K_trg)
-    err = _charbonnier(sampled - tex).mean(-1, keepdim=True)  # (B*L,H,W,1)
-    err_masked = torch.where(valid > 0.5, err, BIG_ERROR).reshape(
-        b, l, h, w, 1)
+    if candidate_radius > 0:
+        err_masked, valid = _candidate_errors(
+            ldi, target_image, pose_src2trg, K_trg, tex, candidate_radius)
+    else:
+        sampled, valid, _ = gather_target_per_layer_folded(
+            ldi, target_image, pose_src2trg, K_trg)
+        err = _charbonnier(sampled - tex).mean(-1, keepdim=True)
+        err_masked = torch.where(valid > 0.5, err, BIG_ERROR)
+    err_masked = err_masked.reshape(b, l, h, w, 1)
     valid = valid.reshape(b, l, h, w, 1)
     if min_over_layers:
         if layer0_margin > 0.0 and l > 1:
             # Deep layers win the min only when they beat layer 0 by more
             # than the margin (LossConfig.min_layer0_margin).
-            is_deep = (torch.arange(l, device=err.device) > 0)[
+            is_deep = (torch.arange(l, device=tex.device) > 0)[
                 None, :, None, None, None]
             err_masked = torch.where(is_deep, err_masked + layer0_margin,
                                      err_masked)
@@ -109,18 +163,23 @@ def view_synthesis_splat(ldi: LDI, target_image: torch.Tensor,
                          pose_src2trg: torch.Tensor,
                          render_cfg: RenderConfig,
                          K_trg: Optional[torch.Tensor] = None,
+                         ssim_weight: float = 0.0,
                          return_diag: bool = False):
     """Scatter-direction photometric loss on the soft-z composite render,
-    masked by splat coverage (Charbonnier only: ``ssim_weight`` 0). With
-    ``return_diag``, returns ``(loss, {"window_dropped_frac": 0})`` as the
-    JAX lax path does."""
+    masked by splat coverage. With ``ssim_weight`` alpha > 0 it is the
+    monodepth mix alpha * (1 - SSIM) / 2 + (1 - alpha) * Charbonnier, the
+    SSIM masked by coverage too. With ``return_diag``, returns
+    ``(loss, {"window_dropped_frac": 0})`` as the JAX lax path does."""
     out = render_forward(ldi, pose_src2trg, K_trg=K_trg,
                          out_hw=tuple(target_image.shape[1:3]),
                          zbuffer_scale=render_cfg.zbuffer_scale)
     covered = (out["coverage"] > 0).float()
-    err = _charbonnier(out["rgb"] - target_image.float()).mean(
-        -1, keepdim=True)
+    trg32 = target_image.float()
+    err = _charbonnier(out["rgb"] - trg32).mean(-1, keepdim=True)
     photo = divide_safe((err * covered).sum(), covered.sum())
+    if ssim_weight > 0.0:
+        structural = (1.0 - ssim(out["rgb"], trg32, mask=covered)) / 2.0
+        photo = ssim_weight * structural + (1.0 - ssim_weight) * photo
     if return_diag:
         return photo, {"window_dropped_frac": out["window_dropped_frac"]}
     return photo
@@ -132,12 +191,12 @@ def disparity_smoothness(ldi: LDI, edge_aware: bool = True,
     exp(-10 |grad I|) of the layer-0 texture). With
     ``edge_gate_deep=False`` the edge gate applies to layer 0 only."""
     d = ldi.disparities[..., 0]  # (B, L, H, W)
-    dx = (d[..., :, 1:] - d[..., :, :-1]).abs()
-    dy = (d[..., 1:, :] - d[..., :-1, :]).abs()
+    dx = _abs(d[..., :, 1:] - d[..., :, :-1])
+    dy = _abs(d[..., 1:, :] - d[..., :-1, :])
     if edge_aware:
         img = ldi.textures[:, 0].float()  # (B, H, W, 3)
-        gx = (img[:, :, 1:] - img[:, :, :-1]).abs().mean(-1)
-        gy = (img[:, 1:, :] - img[:, :-1, :]).abs().mean(-1)
+        gx = _abs(img[:, :, 1:] - img[:, :, :-1]).mean(-1)
+        gy = _abs(img[:, 1:, :] - img[:, :-1, :]).mean(-1)
         wx = torch.exp(-10.0 * gx)[:, None]
         wy = torch.exp(-10.0 * gy)[:, None]
         if not edge_gate_deep and d.shape[1] > 1:
@@ -227,13 +286,14 @@ def total_loss(ldi: LDI, target_image: torch.Tensor,
         inv_loss, inv_diag = view_synthesis_inverse_warp(
             ldi, target_image, pose_src2trg, K_trg,
             min_over_layers=loss_cfg.min_over_layers,
+            candidate_radius=loss_cfg.candidate_radius,
             layer0_margin=loss_cfg.min_layer0_margin, return_diag=True)
         parts["photo_inverse_warp"] = loss_cfg.inverse_warp_weight * inv_loss
         diags.update(inv_diag)
     if loss_cfg.photo_mode in ("splat", "both"):
         splat_loss, diag = view_synthesis_splat(
             ldi, target_image, pose_src2trg, render_cfg, K_trg,
-            return_diag=True)
+            ssim_weight=loss_cfg.ssim_weight, return_diag=True)
         parts["photo_splat"] = loss_cfg.splat_weight * splat_loss
         diags.update(diag)
     if loss_cfg.smoothness_weight > 0:
@@ -303,4 +363,64 @@ def total_loss_bidirectional(ldi_src: LDI, ldi_trg: LDI,
         parts[name] = weight * both
         total = total + parts[name]
     parts["total"] = total
+    return parts
+
+
+def mpi_smoothness(disp: torch.Tensor, image: torch.Tensor,
+                   edge_aware: bool = True) -> torch.Tensor:
+    """First-order smoothness of the MPI's expected source disparity
+    (B, H, W, 1), edge-aware against the input image (weights
+    exp(-10 |grad I|), as the LDI term)."""
+    d = disp[..., 0]  # (B, H, W)
+    dx = _abs(d[:, :, 1:] - d[:, :, :-1])
+    dy = _abs(d[:, 1:, :] - d[:, :-1, :])
+    if edge_aware:
+        img = image.float()
+        gx = _abs(img[:, :, 1:] - img[:, :, :-1]).mean(-1)
+        gy = _abs(img[:, 1:, :] - img[:, :-1, :]).mean(-1)
+        dx = dx * torch.exp(-10.0 * gx)
+        dy = dy * torch.exp(-10.0 * gy)
+    return dx.mean() + dy.mean()
+
+
+def mpi_total_loss(mpi: MPI, src_image: torch.Tensor,
+                   target_image: torch.Tensor, pose_src2trg: torch.Tensor,
+                   loss_cfg: LossConfig,
+                   K_trg: Optional[torch.Tensor] = None,
+                   gt_disparity: Optional[torch.Tensor] = None,
+                   gt_valid: Optional[torch.Tensor] = None,
+                   alpha_coverage_weight: float = 1.0
+                   ) -> Dict[str, torch.Tensor]:
+    """The MPI baseline's training loss: ``{"total", parts...}``.
+
+    * ``photo_mpi``: Charbonnier of the homography-warped over-composite
+      against the target (``splat_weight`` x the mean);
+    * ``alpha_coverage``: mean (1 - accumulated alpha)^2, without which an
+      all-transparent MPI zeroes the photometric gradient;
+    * ``smoothness``: :func:`mpi_smoothness` of the expected source
+      disparity (``smoothness_weight`` > 0);
+    * ``depth_supervision``: Charbonnier of that disparity against ground
+      truth, where the batch has it (``depth_supervision_weight`` > 0).
+    """
+    out = render_mpi(mpi, pose_src2trg, K_trg=K_trg,
+                     out_hw=tuple(target_image.shape[1:3]))
+    err = _charbonnier(out["rgb"] - target_image.float()).mean(
+        -1, keepdim=True)
+    parts = {
+        "photo_mpi": loss_cfg.splat_weight * err.mean(),
+        "alpha_coverage": alpha_coverage_weight * (
+            (1.0 - out["alpha"]) ** 2).mean(),
+    }
+    src_disp = mpi_source_disparity(mpi)
+    if loss_cfg.smoothness_weight > 0:
+        parts["smoothness"] = loss_cfg.smoothness_weight * mpi_smoothness(
+            src_disp, src_image, loss_cfg.edge_aware_smoothness)
+    if loss_cfg.depth_supervision_weight > 0 and gt_disparity is not None:
+        if gt_valid is None:
+            gt_valid = torch.ones_like(gt_disparity)
+        err_d = _charbonnier(src_disp - gt_disparity) * gt_valid
+        parts["depth_supervision"] = (
+            loss_cfg.depth_supervision_weight
+            * divide_safe(err_d.sum(), gt_valid.sum()))
+    parts["total"] = sum(parts.values())
     return parts

@@ -1,4 +1,5 @@
-"""Convert LDI predictor weights between the JAX (Flax) and PyTorch layouts.
+"""Convert model weights (the LDI predictor, the MPI baseline) between the
+JAX (Flax) and PyTorch layouts.
 
 Two JAX formats carry the same '/'-joined Flax parameter paths:
 
@@ -8,7 +9,8 @@ Two JAX formats carry the same '/'-joined Flax parameter paths:
   plus ``__meta_<name>`` scalars.
 
 Names map 1:1 (``UNet_0`` -> ``unet``, ``Conv_0`` -> ``conv``,
-``GroupNorm_0`` -> ``norm``, ``kernel``/``scale`` -> ``weight``), and
+``GroupNorm_0`` -> ``norm``, ``kernel``/``scale`` -> ``weight``; the heads
+``disp_head``, ``tex_head`` and ``mpi_head`` keep their names), and
 arrays change layout:
 
 * conv kernel HWIO -> OIHW;
@@ -74,10 +76,10 @@ def to_flax(t: torch.Tensor, flax_key: str) -> np.ndarray:
 
 
 def _expected_shapes(cfg: ModelConfig) -> dict:
-    from lsi_tpu_torch.models.ldi_predictor import LDIPredictor
+    from lsi_tpu_torch.models import build_model
 
     with torch.device("meta"):
-        net = LDIPredictor(cfg)
+        net = build_model(cfg)
     return {k: tuple(v.shape) for k, v in net.state_dict().items()}
 
 

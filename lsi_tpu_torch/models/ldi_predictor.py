@@ -18,7 +18,7 @@ from torch import nn
 
 from lsi_tpu_torch.config import ModelConfig
 from lsi_tpu_torch.geometry.ldi import LDI
-from lsi_tpu_torch.models.unet import UNet, Conv3x3
+from lsi_tpu_torch.models.unet import Conv3x3, UNet, reset_submodules
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -103,8 +103,9 @@ class LDIPredictor(nn.Module):
     def __init__(self, config: ModelConfig = ModelConfig()):
         super().__init__()
         if config.family != "ldi":
-            raise NotImplementedError(
-                f"model family {config.family!r} is not ported yet")
+            raise ValueError(f"LDIPredictor builds family 'ldi', not "
+                             f"{config.family!r} (models.build_model "
+                             "dispatches on the family)")
         if config.deep_heads_stopgrad_trunk:
             raise NotImplementedError(
                 "deep_heads_stopgrad_trunk is a refuted knob and is not "
@@ -119,11 +120,8 @@ class LDIPredictor(nn.Module):
         self.tex_head = Conv3x3(f, self.num_tex * 3) if self.num_tex else None
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
-        """Flax's default init (lecun-normal kernels, zero biases, unit
-        norm scales), drawn from ``generator`` in module order."""
-        for m in self.modules():
-            if m is not self and hasattr(m, "reset_parameters"):
-                m.reset_parameters(generator)
+        """Flax's default init, drawn from ``generator`` in module order."""
+        reset_submodules(self, generator)
 
     def forward(self, image: torch.Tensor, intrinsics: torch.Tensor) -> LDI:
         """image (B, H, W, 3) in [0, 1]; intrinsics (B, 3, 3) -> LDI."""

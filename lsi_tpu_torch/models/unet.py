@@ -40,6 +40,16 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
                               generator=generator)
 
 
+def reset_submodules(net: nn.Module,
+                     generator: Optional[torch.Generator]) -> None:
+    """Flax's default init (lecun-normal kernels, zero biases, unit norm
+    scales) of every submodule of ``net``, drawn from ``generator`` in
+    module order."""
+    for m in net.modules():
+        if m is not net and hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
+
+
 class Conv3x3(nn.Module):
     """3x3 conv with Flax ``"SAME"`` padding, at stride 1 or 2."""
 

@@ -3,8 +3,10 @@ losses, backward and the optimizer update) and the training loop.
 
 PyTorch counterpart of ``lsi_tpu/train/trainer.py`` (``make_lr_schedule``,
 ``make_optimizer`` as the ``Optimizer`` class, ``create_state``,
-``_truncate_ldi``, ``make_train_step`` with its two-prediction path and
-its ``stage_layer0`` and ``freeze_layer0`` variants, and ``Trainer``).
+``_truncate_ldi``, ``make_train_step`` with its two-prediction path, its
+MPI-baseline path and its ``stage_layer0`` and ``freeze_layer0``
+variants, and ``Trainer``). The model comes from ``models.build_model``:
+the LDI predictor or the MPI baseline (``model.family``).
 The optimizer is optax's chain written out as plain tensor ops, so that it
 matches the JAX package step for step:
 
@@ -24,10 +26,10 @@ matches the JAX package step for step:
 Unlike the JAX step, which returns a new state, ``step_fn`` updates the
 state in place (parameters, moments, counters) and returns it.
 
-Not ported yet (raise ``NotImplementedError``): ``remat_decoder`` (ROADMAP
-Queue 1, item 3), ``collapse_rollback_threshold > 0`` (item 5) and
-``family="mpi"`` (item 7, M11). The refuted knobs (the EMA teacher,
-``consistency_stop_step``) are not ported (ROADMAP "Do not port").
+Not ported yet (raise ``NotImplementedError``): ``remat_decoder`` and
+``collapse_rollback_threshold > 0`` (ROADMAP Queue 1). The refuted knobs
+(the EMA teacher, ``consistency_stop_step``) are not ported (ROADMAP "Do
+not port").
 """
 
 from __future__ import annotations
@@ -50,10 +52,11 @@ from lsi_tpu_torch.evaluation.runner import (build_eval_step,
                                              eval_data_config,
                                              export_image_grid, to_floats)
 from lsi_tpu_torch.geometry.ldi import LDI
-from lsi_tpu_torch.losses.losses import (check_loss_config, total_loss,
+from lsi_tpu_torch.losses.losses import (check_loss_config, mpi_total_loss,
+                                         total_loss,
                                          total_loss_bidirectional)
-from lsi_tpu_torch.models.ldi_predictor import (LDIPredictor,
-                                                freeze_layer0_grad_mask,
+from lsi_tpu_torch.models import build_model
+from lsi_tpu_torch.models.ldi_predictor import (freeze_layer0_grad_mask,
                                                 splice_layer0_params)
 from lsi_tpu_torch.train.checkpoint import (CheckpointManager,
                                             export_params_npz,
@@ -166,9 +169,10 @@ class Optimizer:
 
 @dataclasses.dataclass
 class TrainState:
-    """The network (its parameters), the optimizer state and the number of
-    steps taken, applied or skipped."""
-    net: LDIPredictor
+    """The network (its parameters: an ``LDIPredictor`` or an
+    ``MPIPredictor``), the optimizer state and the number of steps taken,
+    applied or skipped."""
+    net: torch.nn.Module
     opt_state: OptState
     step: int = 0
 
@@ -178,10 +182,9 @@ class TrainState:
 
 def check_train_config(cfg: Config) -> None:
     """Reject the training options the port does not implement."""
-    if cfg.model.family != "ldi":
-        raise NotImplementedError(
-            f"model family {cfg.model.family!r} is not ported yet (ROADMAP "
-            "Queue 1, item 7: M11)")
+    if cfg.model.family not in ("ldi", "mpi"):
+        raise ValueError(
+            f"unknown model family {cfg.model.family!r}; use ldi|mpi")
     if cfg.train.remat_decoder:
         raise NotImplementedError(
             "remat_decoder is not ported yet (ROADMAP Queue 1, item 3)")
@@ -198,7 +201,7 @@ def create_state(cfg: Config, seed: int = 0, device="cuda") -> TrainState:
     gets the same ones), moved to ``device`` (the card unless the caller
     asks for the CPU), and a fresh optimizer state."""
     check_train_config(cfg)
-    net = LDIPredictor(cfg.model)
+    net = build_model(cfg.model)
     net.reset_parameters(torch.Generator().manual_seed(seed))
     net = net.to(device)
     return TrainState(net=net, opt_state=Optimizer(cfg).init(
@@ -212,7 +215,7 @@ def _truncate_ldi(ldi: LDI, num_layers: int) -> LDI:
         disparities=ldi.disparities[:, :num_layers])
 
 
-def apply_model_pair(net: LDIPredictor, image_a: torch.Tensor,
+def apply_model_pair(net: torch.nn.Module, image_a: torch.Tensor,
                      image_b: torch.Tensor, intrinsics: torch.Tensor
                      ) -> Tuple[LDI, LDI]:
     """One forward over both views, stacked on the batch axis. The UNet
@@ -234,17 +237,27 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
     ``(parts, {name: grad})``. The two halves are profiler ranges
     ``train_step/forward_loss`` and ``train_step/backward``.
 
-    A two-prediction config (``symmetric``, ``consistency_weight``,
+    The MPI baseline (``model.family="mpi"``) takes ``mpi_total_loss``
+    (one prediction; ``stage_layer0`` does not apply to it). An LDI
+    two-prediction config (``symmetric``, ``consistency_weight``,
     ``consistency_anchor_weight``) predicts from both views in one forward
     and takes ``total_loss_bidirectional``, except in the
     ``stage_layer0`` step, which keeps the single prediction."""
     params = state.params()
     lc = cfg.loss
-    two_predictions = (lc.consistency_weight > 0
-                       or lc.consistency_anchor_weight > 0 or lc.symmetric)
+    mpi = cfg.model.family == "mpi"
+    two_predictions = not mpi and (lc.consistency_weight > 0
+                                   or lc.consistency_anchor_weight > 0
+                                   or lc.symmetric)
     with record_function("train_step/forward_loss"):
         batch = decode_batch(batch)
-        if two_predictions and not stage_layer0:
+        if mpi:
+            pred = state.net(batch.src_image, batch.intrinsics)
+            parts = mpi_total_loss(
+                pred, batch.src_image, batch.trg_image, batch.pose_src2trg,
+                cfg.loss, gt_disparity=batch.gt_disparity,
+                gt_valid=batch.gt_valid)
+        elif two_predictions and not stage_layer0:
             pred, pred_trg = apply_model_pair(
                 state.net, batch.src_image, batch.trg_image, batch.intrinsics)
             parts = total_loss_bidirectional(
@@ -360,6 +373,11 @@ class Trainer:
                     "in-training eval before the freeze boundary: "
                     f"eval_every={ev} vs freeze_layer0_step={fz}")
         if fz > 0:
+            if cfg.model.family != "ldi":
+                raise ValueError(
+                    "train.freeze_layer0_step is an LDI-family mechanism "
+                    "(the layer-0 vs deep-head parameter split); "
+                    f"family={cfg.model.family!r}")
             if 0 < fz < t.stage_layer0_steps:
                 raise ValueError(
                     f"train.freeze_layer0_step={fz} must be >= "

@@ -3,12 +3,14 @@ steps of the port's ``make_train_step``, device time split by kernel name.
 
     python scripts/profile_torch_train.py [--config kitti_ldi3_b16]
         [--batch 16] [--steps 5] [--trace train_trace.json]
+        [--set loss.candidate_radius=1 ...]
 
 Runs the preset at its published widths on two-plane synthetic scenes
-(``data.dataset="synthetic"``; params from seed 0), three warm-up steps,
-then profiles ``--steps`` steps of one batch. Prints the card's name and
-power limit, wall ms per step (host clock, synchronised), device-busy ms
-per step (the union of kernel intervals), the idle share, kernel and host
+(``data.dataset="synthetic"``; params from seed 0), with ``--set``'s
+dotted overrides, three warm-up steps, then profiles ``--steps`` steps of
+one batch. Prints the card's name and power limit, wall ms per step (host
+clock, synchronised), device-busy ms per step (the union of kernel
+intervals), the idle share, kernel launches per step, kernel and host
 time in each of the step's profiler ranges (forward and loss, backward,
 optimizer), kernel time by kind, the hand-written kernels' ms per step
 and launches, and the kernels with the most device time. Needs a CUDA
@@ -29,7 +31,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from lsi_tpu_torch.config import get_config  # noqa: E402
+from lsi_tpu_torch.config import build_config  # noqa: E402
 from lsi_tpu_torch.data.pipeline import batch_stream  # noqa: E402
 from lsi_tpu_torch.kernels import build  # noqa: E402
 from lsi_tpu_torch.train.trainer import (create_state,  # noqa: E402
@@ -71,6 +73,8 @@ def main(argv=None) -> None:
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--top", type=int, default=30)
     parser.add_argument("--trace", default="")
+    parser.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
+                        help="dotted config overrides, as the CLIs take")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -81,7 +85,7 @@ def main(argv=None) -> None:
     for name in build.LIBRARIES:
         build.load(name)
 
-    cfg = get_config(args.config)
+    cfg = build_config(args.config, args.set)
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, dataset="synthetic", batch_size=args.batch))
     state = create_state(cfg, seed=0, device=dev)
@@ -120,12 +124,13 @@ def main(argv=None) -> None:
         per_name[evt.name][1] += 1
     kernel_ms = sum(v[0] for v in per_name.values()) / 1e3 / args.steps
     busy_ms = busy_us(intervals) / 1e3 / args.steps
-    print(f"{smi} | {args.config} b{args.batch} "
+    print(f"{smi} | {args.config} {args.set} b{args.batch} "
           f"{cfg.data.height}x{cfg.data.width} "
           f"({cfg.model.compute_dtype}), {args.steps} profiled steps")
     print(f"wall {wall:.3f} ms/step under the profiler; device busy "
           f"{busy_ms:.3f} ms/step (kernel time summed {kernel_ms:.3f}); "
-          f"idle share {1 - busy_ms / wall:.3f}")
+          f"idle share {1 - busy_ms / wall:.3f}; "
+          f"{len(intervals) / args.steps:g} kernel launches/step")
     if not intervals:
         print("the profiler recorded no device time")
         return

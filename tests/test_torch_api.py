@@ -171,10 +171,10 @@ def test_entry_points_default_to_cuda(tmp_path):
 
 def test_port_never_imports_jax():
     """A fresh interpreter serves predict_ldi -> render, takes one train
-    step of a toy kitti_ldi3_b16, and trains a toy kitti_ldi3_quality for
-    one step through the training CLI and scores it through the eval CLI,
-    all through the port, with neither JAX nor any module of the JAX
-    package loaded."""
+    step of a toy kitti_ldi3_b16, and trains a toy kitti_ldi3_quality and
+    a toy mpi_baseline for one step each through the training CLI and
+    scores them through the eval CLI, all through the port, with neither
+    JAX nor any module of the JAX package loaded."""
     code = textwrap.dedent("""
         import dataclasses
         import math
@@ -222,6 +222,18 @@ def test_port_never_imports_jax():
             assert state.step == 1 and "depth_consistency" in metrics
             results = eval_main(["--config=kitti_ldi3_quality", "--device",
                                  "cpu", "--num_batches", "1", "--set", *sets])
+            assert math.isfinite(results["abs_rel"])
+        with tempfile.TemporaryDirectory() as ckpt:
+            sets = ["model.num_planes=4", "model.base_filters=8",
+                    "model.num_scales=2", "data.height=16", "data.width=32",
+                    "data.batch_size=2", "train.max_steps=1",
+                    "train.eval_every=1", "train.eval_batches=1",
+                    f"train.checkpoint_dir={ckpt}"]
+            state, metrics = train_main(["--config=mpi_baseline", "--device",
+                                         "cpu", "--set", *sets])
+            assert state.step == 1 and "photo_mpi" in metrics
+            results = eval_main(["--config=mpi_baseline", "--device", "cpu",
+                                 "--num_batches", "1", "--set", *sets])
             assert math.isfinite(results["abs_rel"])
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "lsi_tpu"))

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: K1 (forward splat), the splat VJP
 (K2 + K3) and the bilinear gather (K4) against their plain versions, their
 launch counts, the render and golden fixture on CUDA, K1 at the layer-0
-render's shape and the no-grad disocclusion render, and one train step of
-each kind (single and two predictions).
+render's shape and the no-grad disocclusion render, one train step of
+each kind (single and two predictions), the MPI baseline's plane warp
+(GatherFn with the image's gradient, K1 unsnapped) at its shapes, the MPI
+step and the candidate gathers.
 
 Every test needs a CUDA card (marker ``gpu``) and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed; there,
@@ -24,7 +26,9 @@ from lsi_tpu_torch.config import RenderConfig
 from lsi_tpu_torch.data.pipeline import Batch, batch_stream
 from lsi_tpu_torch.evaluation.occlusion import disocclusion_mask
 from lsi_tpu_torch.geometry.ldi import LDI, render_forward
-from lsi_tpu_torch.losses.losses import depth_consistency
+from lsi_tpu_torch.losses.losses import (depth_consistency,
+                                         view_synthesis_inverse_warp)
+from lsi_tpu_torch.models.mpi import MPI, plane_depths, render_mpi
 from lsi_tpu_torch.geometry.transforms import pose_from_euler
 from lsi_tpu_torch.kernels import gather_cuda, splat_cuda
 from lsi_tpu_torch.ops.gather import bilinear_sample
@@ -539,3 +543,146 @@ def test_two_prediction_step_on_cuda_matches_cpu(cuda):
         # As the single-prediction step above: 1e-3.
         np.testing.assert_allclose(float(metrics[str(cuda)][k]), float(v),
                                    rtol=1e-3, atol=1e-6, err_msg=k)
+
+
+# ------------------------------------------- the MPI baseline, candidates
+
+def plane_warp_inputs(seed, n, h, w):
+    """MPI-like planes (RGBA) and homography coordinates: each plane
+    shifted by its own disparity across, a little vertically, with
+    borders crossed and some rows thrown ~1e6 px away (the denominator
+    floor)."""
+    rng = np.random.default_rng(seed)
+    planes = rng.uniform(size=(n, h, w, 4)).astype(np.float32)
+    planes[:, :4, :8, 3] = 0.0  # alphas exactly 0 and 1
+    planes[:, 4:8, :8, 3] = 1.0
+    shift = rng.uniform(-20, 20, (n, 1, 1)).astype(np.float32)
+    x = (np.arange(w, dtype=np.float32)[None, None, :] + shift
+         + rng.uniform(-0.5, 0.5, (n, h, w)).astype(np.float32))
+    y = (np.arange(h, dtype=np.float32)[None, :, None]
+         + rng.uniform(-1.5, 1.5, (n, h, w)).astype(np.float32))
+    x[:, -2:] = 1e8
+    return planes, np.stack([x, y], -1)
+
+
+@pytest.mark.parametrize("n,h,w", [(16, 16, 64), (128, 128, 256)])
+def test_plane_warp_image_grad_matches_plain(cuda, n, h, w):
+    """GatherFn on planes that require grad (the MPI render's, folded
+    B*D planes; (128, 128, 256) is mpi_baseline's b8 x 16 planes): the
+    forward by lsi_gather_fwd, the image's gradient by K1 unsnapped, no
+    coordinate gradient asked for; against autograd through the plain
+    gather."""
+    planes, coords = plane_warp_inputs(13, n, h, w)
+    results = []
+    for fn in (gather_cuda.GatherFn.apply, bilinear_sample):
+        img = torch.from_numpy(planes).to(cuda).requires_grad_()
+        crd = torch.from_numpy(coords).to(cuda)
+        counts = [k.launches for k in KERNELS]
+        outs = fn(img, crd)
+        # ``valid`` does not depend on the image: only ``sampled``'s
+        # cotangent reaches it.
+        (grad,) = torch.autograd.grad(outs[0], img,
+                                      cotangents_like(14, outs[0]))
+        results.append((outs, grad,
+                         [k.launches - c for k, c in zip(KERNELS, counts)]))
+    torch.cuda.synchronize()
+    (outs, grad, launched), (ref_outs, ref_grad, plain) = results
+    assert launched == [1, 0, 1, 0] and plain == [0, 0, 0, 0]
+    for got, want in zip(outs, ref_outs):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    # d_image sums K1's float32 atomics: 1e-5 of the largest.
+    torch.testing.assert_close(grad, ref_grad, rtol=1e-4,
+                               atol=1e-5 * float(ref_grad.abs().max()))
+
+
+def toy_mpi(dev, b=2, d=4, h=16, w=32):
+    rng = np.random.default_rng(15)
+    colors = rng.uniform(size=(b, d, h, w, 3)).astype(np.float32)
+    alphas = rng.uniform(0.05, 0.95, (b, d, h, w, 1)).astype(np.float32)
+    alphas[:, :, 2:5, 3:9] = 0.0
+    K = np.tile(np.array([[20.0, 0, w / 2], [0, 18.0, h / 2], [0, 0, 1]],
+                         np.float32), (b, 1, 1))
+    return MPI(torch.from_numpy(colors).to(dev).requires_grad_(),
+               torch.from_numpy(alphas).to(dev).requires_grad_(),
+               plane_depths(d, device=dev), torch.from_numpy(K).to(dev))
+
+
+def test_render_mpi_on_cuda_matches_cpu(cuda):
+    """render_mpi on the card (one gather launch for all planes, one K1
+    launch for their gradient) against the CPU path: values and the VJP
+    in the colours and alphas."""
+    pose = pose_from_euler([[0.01, -0.02, 0.0]] * 2, [[-0.3, 0.05, 0.1]] * 2)
+    results = []
+    for dev in ("cpu", cuda):
+        mpi = toy_mpi(dev)
+        counts = [k.launches for k in KERNELS]
+        out = render_mpi(mpi, pose.to(dev))
+        outs = [out[k] for k in ("rgb", "alpha", "disparity")]
+        cots = [c.to(dev) for c in cotangents_like(16, *[o.cpu()
+                                                         for o in outs])]
+        grads = torch.autograd.grad(outs, (mpi.colors, mpi.alphas), cots)
+        results.append(([o.detach().cpu() for o in outs],
+                        [g.cpu() for g in grads],
+                        [k.launches - c for k, c in zip(KERNELS, counts)]))
+    (outs, grads, plain), (c_outs, c_grads, launched) = results
+    assert plain == [0, 0, 0, 0] and launched == [1, 0, 1, 0]
+    for got, want in zip(c_outs, outs):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    for got, want in zip(c_grads, grads):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_mpi_step_on_cuda_matches_cpu(cuda):
+    """One toy step of mpi_baseline on the card and on the CPU from the
+    same params and batch: one gather and one K1 launch, no splat VJP or
+    coordinate gather, the same loss parts."""
+    cfg = get_config("mpi_baseline")
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, num_planes=4, base_filters=8,
+                                       num_scales=2, compute_dtype="float32"),
+        data=dataclasses.replace(cfg.data, height=16, width=64,
+                                 batch_size=2))
+    batch = next(batch_stream(cfg.data, device="cpu"))
+    metrics = {}
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda):
+            state = create_state(cfg, seed=0, device=dev)
+            counts = [k.launches for k in KERNELS]
+            b = Batch(**{f.name: getattr(batch, f.name).to(dev)
+                         for f in dataclasses.fields(Batch)})
+            _, metrics[str(dev)] = make_train_step(cfg)(state, b)
+            launched = [k.launches - n for k, n in zip(KERNELS, counts)]
+            assert launched == ([0] * 4 if dev == "cpu" else [1, 0, 1, 0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    for k, v in metrics["cpu"].items():
+        np.testing.assert_allclose(float(metrics[str(cuda)][k]), float(v),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("radius", [1, 2])
+def test_candidate_gathers_on_cuda_match_cpu(cuda, radius):
+    """The inverse warp with candidate_radius r: one stacked gather (one
+    launch of lsi_gather_fwd and of lsi_gather_bwd_coords), the loss and
+    its gradients in the LDI against the CPU path."""
+    results = []
+    for dev in ("cpu", cuda):
+        src, _, pose = layered_scene(dev)
+        target = torch.from_numpy(np.random.default_rng(17).uniform(
+            size=(2, 24, 64, 3)).astype(np.float32)).to(dev)
+        counts = [k.launches for k in KERNELS]
+        loss = view_synthesis_inverse_warp(src, target, pose,
+                                           candidate_radius=radius)
+        grads = torch.autograd.grad(loss, (src.textures, src.disparities))
+        results.append((float(loss.detach()), [g.cpu() for g in grads],
+                        [k.launches - c for k, c in zip(KERNELS, counts)]))
+    (loss, grads, plain), (c_loss, c_grads, launched) = results
+    assert plain == [0, 0, 0, 0] and launched == [0, 0, 1, 1]
+    np.testing.assert_allclose(c_loss, loss, rtol=1e-5)
+    for got, want in zip(c_grads, grads):
+        # Where two candidates' errors lie within the devices' rounding
+        # the min may pick another one (ROADMAP H10): in aggregate.
+        assert float((got - want).norm()) <= 1e-3 * float(want.norm())

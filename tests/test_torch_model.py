@@ -142,9 +142,12 @@ def test_converter_rejects_mismatched_weights(fault):
 
 
 def test_unported_model_options_raise():
+    """The refuted ``deep_heads_stopgrad_trunk`` raises; an MPI config is
+    the other family's (``models.build_model`` dispatches; see
+    tests/test_torch_mpi.py), so the LDI predictor rejects it."""
     with pytest.raises(NotImplementedError):
         LDIPredictor(ModelConfig(deep_heads_stopgrad_trunk=True))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         LDIPredictor(ModelConfig(family="mpi"))
 
 
