@@ -433,11 +433,23 @@ def k1_bound(values, coords, weights, out_hw):
                  2 * (c + 1) * corners_in_image(coords, *out_hw))
 
 
+def k1_image_grad_bound(values, coords, out_hw):
+    """K1's bound as the gather's image gradient, the function
+    grid_sample's backward for its input computes: the cotangent and the
+    coordinates read once, d_image written once, against 2 C float32
+    operations per in-image corner. The unit weights GatherFn.backward
+    passes and the wsum it discards are not part of that function."""
+    n, _, _, c = values.shape
+    return bound(nbytes(values, coords) + 4 * n * out_hw[0] * out_hw[1] * c,
+                 2 * c * corners_in_image(coords, *out_hw))
+
+
 def time_k1(label: str, smi: str, values, coords, weights, out_hw,
-            snap: bool = True, iters: int = 20):
+            snap: bool = True, iters: int = 20, bnd=None):
     """K1 against the plain splat on these inputs (values within
     SPLAT_RTOL), then both timed in turns; logs and returns
-    (times, bound, max abs err)."""
+    (times, bound, max abs err). ``bnd`` replaces ``k1_bound`` where K1
+    computes a narrower function."""
     ref = splat_bilinear(values, coords, weights, out_hw, snap=snap)
     got = splat_cuda.splat(values, coords, weights, out_hw, snap=snap)
     err = max(check_close(f"K1 {label} {name}", g, r, SPLAT_RTOL,
@@ -449,7 +461,8 @@ def time_k1(label: str, smi: str, values, coords, weights, out_hw,
                                         snap=snap),
         "kernel": lambda: splat_cuda.splat(values, coords, weights, out_hw,
                                            snap=snap)}, iters=iters)
-    bnd = k1_bound(values, coords, weights, out_hw)
+    if bnd is None:
+        bnd = k1_bound(values, coords, weights, out_hw)
     log("timing", f"{smi} | K1 splat {label} {tuple(values.shape)} -> "
         f"{tuple(out_hw)}: {1e3 * t['kernel']:.1f} us/call "
         f"{readings['kernel']}, plain index_add_ {1e3 * t['plain']:.1f} "
@@ -1261,8 +1274,9 @@ def mpi_timing(dev, smi: str) -> dict:
         fail(f"the MPI step's K1 launch is not the planes' gradient: "
              f"snap {snap}, values {tuple(values.shape)}")
     _, _, k_err = time_k1("on the b8 mpi_baseline step's own inputs (the "
-                          "planes' gradient, unsnapped)", smi,
-                          *calls["splat_fwd"][0])
+                          "planes' gradient, unsnapped; bound of d_image "
+                          "alone)", smi, *calls["splat_fwd"][0],
+                          bnd=k1_image_grad_bound(values, kcoords, out_hw))
     # The library call computing the same function: grid_sample's backward
     # for its input, with the same cotangent.
     img = image.permute(0, 3, 1, 2).contiguous().requires_grad_()

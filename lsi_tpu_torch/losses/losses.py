@@ -31,8 +31,8 @@ import torch
 from lsi_tpu_torch.config import LossConfig, RenderConfig
 from lsi_tpu_torch.evaluation.metrics import ssim
 from lsi_tpu_torch.evaluation.occlusion import disocclusion_mask
-from lsi_tpu_torch.geometry.ldi import (LDI, gather_target_per_layer_folded,
-                                        project_layers_folded, render_forward)
+from lsi_tpu_torch.geometry.ldi import (LDI, project_layers_folded,
+                                        render_forward)
 from lsi_tpu_torch.kernels.gather_cuda import GatherFn
 from lsi_tpu_torch.models.mpi import MPI, mpi_source_disparity, render_mpi
 from lsi_tpu_torch.geometry.transforms import invert_pose
@@ -79,19 +79,22 @@ def _candidate_errors(ldi: LDI, target_image: torch.Tensor,
     gather samples every candidate (one launch of each gather kernel, the
     coordinates' gradient summed back over the offsets). The min and max
     are taken offset by offset (dy outer, dx inner), as the reference
-    takes them, so ties split their gradient the same way.
+    takes them, so ties split their gradient the same way. Radius 0 is
+    the plain inverse warp: one offset, added nowhere.
 
     Returns (err_masked (B*L, H, W, 1), valid (B*L, H, W, 1)).
     """
     b, l, h, w, _ = ldi.textures.shape
     trg_coords, _, in_front = project_layers_folded(ldi, pose_src2trg, K_trg)
-    offsets = torch.tensor(
-        [[dx, dy] for dy in range(-radius, radius + 1)
-         for dx in range(-radius, radius + 1)],
-        dtype=torch.float32, device=trg_coords.device)
-    k = offsets.shape[0]
-    coords = (trg_coords.reshape(b, 1, l * h, w, 2)
-              + offsets[None, :, None, None, :]).reshape(b, k * l * h, w, 2)
+    k = (2 * radius + 1) ** 2
+    coords = trg_coords.reshape(b, 1, l * h, w, 2)
+    if radius > 0:
+        offsets = torch.tensor(
+            [[dx, dy] for dy in range(-radius, radius + 1)
+             for dx in range(-radius, radius + 1)],
+            dtype=torch.float32, device=trg_coords.device)
+        coords = coords + offsets[None, :, None, None, :]
+    coords = coords.reshape(b, k * l * h, w, 2)
     sampled, in_bounds = GatherFn.apply(target_image.float().contiguous(),
                                         coords.contiguous())
 
@@ -130,14 +133,8 @@ def view_synthesis_inverse_warp(ldi: LDI, target_image: torch.Tensor,
     """
     b, l, h, w, _ = ldi.textures.shape
     tex = ldi.textures.float().reshape(b * l, h, w, 3)
-    if candidate_radius > 0:
-        err_masked, valid = _candidate_errors(
-            ldi, target_image, pose_src2trg, K_trg, tex, candidate_radius)
-    else:
-        sampled, valid, _ = gather_target_per_layer_folded(
-            ldi, target_image, pose_src2trg, K_trg)
-        err = _charbonnier(sampled - tex).mean(-1, keepdim=True)
-        err_masked = torch.where(valid > 0.5, err, BIG_ERROR)
+    err_masked, valid = _candidate_errors(
+        ldi, target_image, pose_src2trg, K_trg, tex, candidate_radius)
     err_masked = err_masked.reshape(b, l, h, w, 1)
     valid = valid.reshape(b, l, h, w, 1)
     if min_over_layers:

@@ -287,14 +287,14 @@ def test_mpi_total_loss_matches_jax(rng, smooth, supervised):
         np.testing.assert_allclose(float(parts[k].detach()), float(v),
                                    rtol=1e-5,
                                    atol=1e-8, err_msg=k)
-    # Gradients as in tests/test_torch_losses.py: rtol 1e-4 plus 2e-3 of
-    # the largest, because the Charbonnier slope turns fastest at a
-    # residual near 0 (curvature 1 / eps = 1e4), where the warp's 1e-7
-    # differences in the render move it most (measured: 1.9e-4 of the
-    # largest colour gradient, at 2 of 12288 entries).
+    # Gradients: rtol 1e-4 plus 5e-4 of the largest, not 1e-4, because
+    # the Charbonnier slope turns fastest at a residual near 0 (curvature
+    # 1 / eps = 1e4), where the warp's 1e-7 differences in the render move
+    # it most (measured: 1.9e-4 of the largest colour gradient, at 2 of
+    # 12288 entries).
     grads = torch.autograd.grad(parts["total"], (mpi.colors, mpi.alphas))
     for name, g, jg in zip(("colors", "alphas"), grads, j_grads):
         jg = np.asarray(jg)
         np.testing.assert_allclose(g.numpy(), jg, rtol=1e-4,
-                                   atol=2e-3 * np.abs(jg).max(),
+                                   atol=5e-4 * np.abs(jg).max(),
                                    err_msg=name)

@@ -343,38 +343,19 @@ UNPORTED = {
     "ema_teacher": ("loss", {"consistency_ema_teacher": True}),
     "consistency_stop_step": ("loss", {"consistency_stop_step": 10}),
     "collapse_rollback": ("train", {"collapse_rollback_threshold": 0.1}),
-    "candidate_radius": ("loss", {"candidate_radius": 1}),
-    "ssim_weight": ("loss", {"ssim_weight": 0.5}),
     "photo_layer0_weight": ("loss", {"photo_layer0_weight": 0.1}),
     "remat_decoder": ("train", {"remat_decoder": True}),
-    "mpi": ("model", {"family": "mpi"}),
 }
-
-
-#: Options of UNPORTED that are ported since: a step of each runs.
-PORTED_SINCE = ("candidate_radius", "ssim_weight", "mpi")
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_train_options_raise(case):
-    """The options still unported raise; those ported since (the
-    candidate gathers, the SSIM mix, the MPI family) take a finite step on
-    the CPU instead."""
     section, change = UNPORTED[case]
     cfg = toy_config(get_config)
     cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
         getattr(cfg, section), **change)})
-    if case not in PORTED_SINCE:
-        with pytest.raises(NotImplementedError):
-            ttrainer.make_train_step(cfg)
-        return
-    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
-        cfg.data, height=16, width=32))
-    state = ttrainer.create_state(cfg, device="cpu")
-    _, metrics = ttrainer.make_train_step(cfg)(
-        state, next(tpipe.batch_stream(cfg.data, device="cpu")))
-    assert all(np.isfinite(float(v)) for v in metrics.values())
-    assert ("photo_mpi" in metrics) == (case == "mpi")
+    with pytest.raises(NotImplementedError):
+        ttrainer.make_train_step(cfg)
 
 
 # ------------------------------------------------------------------ data
