@@ -13,7 +13,7 @@
 // gathers. Here each thread reads its own pixel's four bilinear corners:
 // a gather, with no atomics, so every output is written by one thread and
 // the results repeat bitwise. The semantics are those of the JAX lax
-// oracles (no window): the splat's VJP uses the snapped fractions and has
+// oracles: the splat's VJP uses the snapped fractions and has
 // a zero coordinate gradient where a fraction lies in a snap zone
 // (lsi_tpu/ops/splat.py:snap_fraction under autodiff, as
 // splat_pallas.py:_bwd_gather shows); the gather does not snap
@@ -21,6 +21,15 @@
 // difference. The plain versions beside these kernels are
 // lsi_tpu_torch/ops/splat.py (tent_sums, splat_bilinear under autograd)
 // and lsi_tpu_torch/ops/gather.py.
+//
+// The splat's VJP also has the TPU kernel's windowed mode (max_dy >= 0),
+// the gradient of lsi_splat_fwd's windowed splat for the height-sharded
+// render: a corner whose row yi has yi - base outside [-max_dy,
+// max_dy + 1], base = r % fold_h + base_offset for source row r, counts
+// as outside the image, so it adds nothing to S0, SX or SY (the gradients
+// masked to the window, as splat_pallas.py:splat_pallas_diff's are). The
+// window is one more test in the shared corner function; the gathers pass
+// max_dy = -1 and compute what they computed before.
 //
 // Per source pixel at (x, y) with corners k = 00, 01 (x+1), 10 (y+1), 11,
 // fractions fx, fy and I_k the input at corner k (0 outside the image):
@@ -92,7 +101,9 @@ __device__ __forceinline__ float snap_fraction(float f) {
   return f;
 }
 
-// The bilinear neighbourhood of one coordinate in an h x w image.
+// The bilinear neighbourhood of one coordinate in an h x w image; with
+// max_dy >= 0, only the corners whose row lies in [base - max_dy,
+// base + max_dy + 1].
 struct Corners {
   float fx, fy;       // fractions, snapped when SNAP
   bool live_x, live_y;  // the fraction carries a gradient (not snapped)
@@ -102,7 +113,9 @@ struct Corners {
 
 template <bool SNAP>
 __device__ __forceinline__ Corners corners(float x, float y, int64_t img_off,
-                                           int64_t h, int64_t w) {
+                                           int64_t h, int64_t w,
+                                           int64_t base = 0,
+                                           int max_dy = -1) {
   Corners c;
   const float x0 = floorf(x);
   const float y0 = floorf(y);
@@ -132,8 +145,14 @@ __device__ __forceinline__ Corners corners(float x, float y, int64_t img_off,
     const float xi = x0 + (k & 1);
     const float yi = y0 + (k >> 1);
     // NaN coordinates fail every comparison: all corners outside.
-    const bool inb = xi >= 0.0f && xi <= static_cast<float>(w - 1) &&
-                     yi >= 0.0f && yi <= static_cast<float>(h - 1);
+    bool inb = xi >= 0.0f && xi <= static_cast<float>(w - 1) &&
+               yi >= 0.0f && yi <= static_cast<float>(h - 1);
+    // Exact in float: it decides only for rows inside the image.
+    if (max_dy >= 0) {
+      const float ky = yi - static_cast<float>(base);
+      inb = inb && ky >= static_cast<float>(-max_dy) &&
+            ky <= static_cast<float>(max_dy + 1);
+    }
     c.off[k] = inb ? img_off + static_cast<int64_t>(yi) * w +
                          static_cast<int64_t>(xi)
                    : -1;
@@ -154,14 +173,19 @@ __global__ void splat_vjp_kernel(
     const float* __restrict__ weights, const float* __restrict__ g_accum,
     const float* __restrict__ g_wsum, float* __restrict__ d_values,
     float* __restrict__ d_coords, float* __restrict__ d_weights,
-    int64_t total, int64_t pixels_per_image, int64_t out_h, int64_t out_w) {
+    int64_t total, int64_t pixels_per_image, int64_t out_h, int64_t out_w,
+    int64_t src_w, int max_dy, int64_t fold_h, int64_t base_offset) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < total; i += stride) {
+    const int64_t base =
+        max_dy >= 0 ? (i % pixels_per_image) / src_w % fold_h + base_offset
+                    : 0;
     const Corners c =
         corners<true>(coords[2 * i], coords[2 * i + 1],
-                      (i / pixels_per_image) * out_h * out_w, out_h, out_w);
+                      (i / pixels_per_image) * out_h * out_w, out_h, out_w,
+                      base, max_dy);
     float v[C];
 #pragma unroll
     for (int ch = 0; ch < C; ++ch) v[ch] = values[i * C + ch];
@@ -357,13 +381,20 @@ cudaError_t grid_for(int64_t total, int* blocks) {
 // The splat's VJP (K2 + K3). values (n, src_h, src_w, channels), coords
 // (.., 2), weights (.., 1), g_accum (n, out_h, out_w, channels), g_wsum
 // (.., 1) -> d_values, d_coords, d_weights shaped as values, coords,
-// weights (each may be null).
+// weights (each may be null). max_dy >= 0: the windowed splat's VJP, base
+// row r % fold_h + base_offset (as lsi_splat_fwd); max_dy < 0: unwindowed.
 extern "C" int lsi_splat_vjp(const void* values, const void* coords,
                              const void* weights, const void* g_accum,
                              const void* g_wsum, void* d_values,
                              void* d_coords, void* d_weights, int64_t n,
                              int64_t src_h, int64_t src_w, int channels,
-                             int64_t out_h, int64_t out_w, void* stream) {
+                             int64_t out_h, int64_t out_w, int max_dy,
+                             int64_t fold_h, int64_t base_offset,
+                             void* stream) {
+  if (max_dy >= 0 && (fold_h <= 0 || src_h % fold_h != 0 ||
+                      base_offset < 0 || base_offset + fold_h > out_h)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int64_t ppi = src_h * src_w;
   LSI_LAUNCH_BY_CHANNELS(
       splat_vjp_kernel, channels, n * ppi, stream,
@@ -371,7 +402,8 @@ extern "C" int lsi_splat_vjp(const void* values, const void* coords,
       static_cast<const float*>(weights), static_cast<const float*>(g_accum),
       static_cast<const float*>(g_wsum), static_cast<float*>(d_values),
       static_cast<float*>(d_coords), static_cast<float*>(d_weights), n * ppi,
-      ppi, out_h, out_w);
+      ppi, out_h, out_w, src_w, max_dy, max_dy >= 0 ? fold_h : 1,
+      base_offset);
 }
 
 // The gather's forward (K4). image (n, img_h, img_w, channels), coords

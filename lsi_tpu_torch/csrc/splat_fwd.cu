@@ -4,9 +4,10 @@
 // (launched by splat_pallas). The TPU version builds per-row tent matrices
 // and runs them through the matrix unit inside a static vertical window;
 // here every source pixel scatters to its four target corners with
-// float32 atomics, which gives the exact, unwindowed semantics of
-// lsi_tpu/ops/splat.py:splat_bilinear (the plain version beside this
-// kernel is lsi_tpu_torch/ops/splat.py).
+// float32 atomics, which gives the exact semantics of
+// lsi_tpu/ops/splat.py:splat_bilinear, unwindowed or with its vertical
+// window (the plain version beside this kernel is
+// lsi_tpu_torch/ops/splat.py).
 //
 // What bounds it on an H100: atomics, not bytes. At the render's shape
 // (N=8, Hs=L*H=512, Ws=768, C=4) the bytes alone (~88 MB read, ~31 MB of
@@ -36,7 +37,19 @@
 //
 // SNAP (the render) snaps the fractions as ops/splat.py does; without it
 // the kernel is the exact transpose of the unsnapped bilinear gather (the
-// gather's image gradient). Summation order is not fixed (atomics), so
+// gather's image gradient).
+//
+// The windowed mode (max_dy >= 0) is the TPU kernel's contract, which the
+// height-sharded render (lsi_tpu_torch/parallel/spatial.py) relies on: a
+// corner is dropped when its target row yi has yi - base outside
+// [-max_dy, max_dy + 1], base = r % fold_h + base_offset for source row r
+// of the image (lsi_tpu/kernels/splat_pallas.py:_fold_coords; the plain
+// version is ops/splat.py's max_dy_window). The test is one more
+// predicate on a corner's liveness, so a dropped corner leaves the
+// block's bounding box too and both paths (shared memory and global
+// atomics) drop it alike. max_dy < 0 is the unwindowed splat.
+//
+// Summation order is not fixed (atomics), so
 // results differ from run to run in the last bits (H8). Bounds are tested
 // in float BEFORE any float->int conversion: projected coordinates reach
 // +-1e6 where the projection clamps its denominator, and an out-of-range
@@ -63,7 +76,8 @@ __device__ __forceinline__ float snap_fraction(float f) {
 }
 
 // The in-image corners of one coordinate: corner k (00, 01, 10, 11) is
-// live when its fraction is > 0 and it lies in the out_h x out_w target.
+// live when its fraction is > 0, it lies in the out_h x out_w target and,
+// when max_dy >= 0, its row lies in [base - max_dy, base + max_dy + 1].
 struct Corners {
   int xi, yi;     // corner 00, valid only for live corners' arithmetic
   float frac[4];
@@ -72,7 +86,7 @@ struct Corners {
 
 template <bool SNAP>
 __device__ __forceinline__ Corners corners(float x, float y, int out_h,
-                                           int out_w) {
+                                           int out_w, int base, int max_dy) {
   Corners c;
   const float x0 = floorf(x);
   const float y0 = floorf(y);
@@ -91,6 +105,12 @@ __device__ __forceinline__ Corners corners(float x, float y, int out_h,
     c.live[k] = c.frac[k] > 0.0f && xf >= 0.0f &&
                 xf <= static_cast<float>(out_w - 1) && yf >= 0.0f &&
                 yf <= static_cast<float>(out_h - 1);
+    // Exact in float: it decides only for rows inside the target.
+    if (max_dy >= 0) {
+      const float ky = yf - static_cast<float>(base);
+      c.live[k] = c.live[k] && ky >= static_cast<float>(-max_dy) &&
+                  ky <= static_cast<float>(max_dy + 1);
+    }
     any |= c.live[k];
   }
   // Converted only where some corner is in the image: then x0 and y0 lie
@@ -148,7 +168,8 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ weights,
                      float* __restrict__ accum, float* __restrict__ wsum,
                      int src_h, int src_w, int out_h, int out_w, int tile_h,
-                     int smem_floats, int vec4) {
+                     int smem_floats, int vec4, int max_dy, int fold_h,
+                     int base_offset) {
   extern __shared__ float smem[];  // the box: C planes of accum, 1 of wsum
   __shared__ int box[4];  // min x, max x, min y, max y of live corners
 
@@ -176,7 +197,9 @@ __global__ void __launch_bounds__(kThreads)
     if (col < src_w) {
       for (int r = row0 + threadIdx.y; r < row_end; r += blockDim.y) {
         const float2 p = xy[r * src_w + col];
-        const Corners c = corners<SNAP>(p.x, p.y, out_h, out_w);
+        const Corners c = corners<SNAP>(
+            p.x, p.y, out_h, out_w,
+            max_dy >= 0 ? r % fold_h + base_offset : 0, max_dy);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           if (!c.live[k]) continue;
@@ -217,7 +240,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = row0 + threadIdx.y; r < row_end; r += blockDim.y) {
       const int p = r * src_w + col;
       const float2 q = xy[p];
-      const Corners c = corners<SNAP>(q.x, q.y, out_h, out_w);
+      const Corners c = corners<SNAP>(
+          q.x, q.y, out_h, out_w,
+          max_dy >= 0 ? r % fold_h + base_offset : 0, max_dy);
       if (!(c.live[0] || c.live[1] || c.live[2] || c.live[3])) continue;
       const float w = weights[src_base + p];
       float pay[C];
@@ -271,7 +296,8 @@ cudaError_t launch(const float* values, const float* coords,
                    const float* weights, float* accum, float* wsum,
                    int64_t n, int64_t src_h, int64_t src_w, int64_t out_h,
                    int64_t out_w, int block_x, int tile_h, int smem_bytes,
-                   int vec4, cudaStream_t stream) {
+                   int vec4, int max_dy, int fold_h, int base_offset,
+                   cudaStream_t stream) {
   auto kernel = splat_fwd_kernel<C, SNAP>;
   // Dynamic + static shared memory above 48 KB needs the opt-in.
   const cudaError_t err = cudaFuncSetAttribute(
@@ -283,7 +309,8 @@ cudaError_t launch(const float* values, const float* coords,
   kernel<<<grid, block, smem_bytes, stream>>>(
       values, coords, weights, accum, wsum, static_cast<int>(src_h),
       static_cast<int>(src_w), static_cast<int>(out_h),
-      static_cast<int>(out_w), tile_h, smem_bytes / 4, vec4);
+      static_cast<int>(out_w), tile_h, smem_bytes / 4, vec4, max_dy, fold_h,
+      base_offset);
   return cudaGetLastError();
 }
 
@@ -295,17 +322,26 @@ cudaError_t launch(const float* values, const float* coords,
 // 256 / block_x rows of threads; tile_h source rows per block (a multiple
 // of 256 / block_x); smem_bytes of dynamic shared memory for the box;
 // vec4: float4 loads and atomics (channels 4, pointers 16-byte aligned).
+// max_dy >= 0: the windowed splat, base row r % fold_h + base_offset
+// (src_h a multiple of fold_h, base rows inside the target); max_dy < 0:
+// unwindowed, fold_h and base_offset unused.
 extern "C" int lsi_splat_fwd(const void* values, const void* coords,
                              const void* weights, void* accum, void* wsum,
                              int64_t n, int64_t src_h, int64_t src_w,
                              int channels, int64_t out_h, int64_t out_w,
                              int snap, int block_x, int tile_h,
-                             int smem_bytes, int vec4, void* stream) {
+                             int smem_bytes, int vec4, int max_dy,
+                             int64_t fold_h, int64_t base_offset,
+                             void* stream) {
   cudaError_t err = cudaSuccess;
   if (n * src_h * src_w == 0) return 0;
   if (block_x <= 0 || kThreads % block_x != 0 || tile_h <= 0 ||
       tile_h % (kThreads / block_x) != 0 || smem_bytes < 0 ||
       (vec4 && channels != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (max_dy >= 0 && (fold_h <= 0 || src_h % fold_h != 0 ||
+                      base_offset < 0 || base_offset + fold_h > out_h)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* v = static_cast<const float*>(values);
@@ -314,15 +350,17 @@ extern "C" int lsi_splat_fwd(const void* values, const void* coords,
   auto* a = static_cast<float*>(accum);
   auto* s = static_cast<float*>(wsum);
   auto st = static_cast<cudaStream_t>(stream);
+  const int fd = max_dy >= 0 ? static_cast<int>(fold_h) : 1;
+  const int bo = max_dy >= 0 ? static_cast<int>(base_offset) : 0;
   switch (channels) {
 #define LSI_SPLAT_CASE(CH)                                                  \
   case CH:                                                                  \
     err = snap ? launch<CH, true>(v, c, w, a, s, n, src_h, src_w, out_h,   \
                                   out_w, block_x, tile_h, smem_bytes, vec4, \
-                                  st)                                       \
+                                  max_dy, fd, bo, st)                       \
                : launch<CH, false>(v, c, w, a, s, n, src_h, src_w, out_h,  \
                                    out_w, block_x, tile_h, smem_bytes,     \
-                                   vec4, st);                               \
+                                   vec4, max_dy, fd, bo, st);               \
     break;
     LSI_SPLAT_CASE(1)
     LSI_SPLAT_CASE(2)

@@ -3,7 +3,7 @@ batch stream.
 
 PyTorch counterpart of ``lsi_tpu/data/pipeline.py`` (``Batch``,
 ``decode_batch``, the synthetic example and batch streams). Not ported
-yet (ROADMAP Queue 1, item 4): the KITTI and SYNTHIA readers, materialized
+yet (ROADMAP Queue 1, M7): the KITTI and SYNTHIA readers, materialized
 datasets (``data.root``) and the background prefetch thread; the stream
 here builds each batch on the calling thread.
 """
@@ -53,7 +53,7 @@ def _example_stream(cfg: DataConfig, seed: int, repeat: bool):
         raise NotImplementedError(
             f"dataset {cfg.dataset!r} (root {cfg.root!r}) is not ported yet: "
             "the port streams generated synthetic scenes only (ROADMAP "
-            "Queue 1, item 4)")
+            "Queue 1, M7)")
     # The val split is a disjoint seed range.
     if cfg.split == "val":
         seed = seed + 0x5EED_0FF5
@@ -68,13 +68,18 @@ def _example_stream(cfg: DataConfig, seed: int, repeat: bool):
 
 
 def batch_stream(cfg: DataConfig, seed: int = 0, repeat: bool = True,
-                 device="cuda") -> Iterator[Batch]:
+                 device="cuda", examples: Optional[slice] = None
+                 ) -> Iterator[Batch]:
     """Batches of ``cfg.batch_size`` examples as tensors on ``device``
-    (the card unless the caller asks for the CPU)."""
+    (the card unless the caller asks for the CPU). With ``examples``, only
+    that slice of each batch is kept: a data-parallel rank makes the whole
+    global batch from the seed and keeps its share, so its batches are
+    the ones JAX's sharded stream gives that shard."""
     buf = []
     for ex in _example_stream(cfg, seed, repeat):
         buf.append(ex)
         if len(buf) == cfg.batch_size:
-            yield Batch(**{k: torch.from_numpy(np.stack([e[k] for e in buf]))
-                           .to(device) for k in buf[0]})
+            keep = buf if examples is None else buf[examples]
+            yield Batch(**{k: torch.from_numpy(np.stack([e[k] for e in keep]))
+                           .to(device) for k in keep[0]})
             buf = []

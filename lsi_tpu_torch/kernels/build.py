@@ -35,15 +35,18 @@ _INT = ctypes.c_int
 LIBRARIES = {
     "splat_fwd": (("splat_fwd.cu",), {
         # values, coords, weights, accum, wsum, n, src_h, src_w, channels,
-        # out_h, out_w, snap, block_x, tile_h, smem_bytes, vec4, stream
+        # out_h, out_w, snap, block_x, tile_h, smem_bytes, vec4, max_dy,
+        # fold_h, base_offset, stream
         "lsi_splat_fwd": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
-                          _I64, _I64, _INT, _INT, _INT, _INT, _INT, _P],
+                          _I64, _I64, _INT, _INT, _INT, _INT, _INT, _INT,
+                          _I64, _I64, _P],
     }),
     "splat_bwd": (("splat_bwd.cu",), {
         # values, coords, weights, g_accum, g_wsum, d_values, d_coords,
-        # d_weights, n, src_h, src_w, channels, out_h, out_w, stream
+        # d_weights, n, src_h, src_w, channels, out_h, out_w, max_dy,
+        # fold_h, base_offset, stream
         "lsi_splat_vjp": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                          _INT, _I64, _I64, _P],
+                          _INT, _I64, _I64, _INT, _I64, _I64, _P],
         # image, coords, sampled, valid, n, src_h, src_w, channels, img_h,
         # img_w, row_groups, tile_rows, row_stride, stream
         "lsi_gather_fwd": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64,

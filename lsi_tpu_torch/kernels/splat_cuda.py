@@ -9,9 +9,10 @@ The kernels are hand-written for sm_90a and bound through ctypes:
   ``lsi_tpu_torch/csrc/splat_bwd.cu``, replacing ``_splat_bwd_kernel``
   (K2) with the combine of ``splat_pallas_diff``'s backward (K3) fused in.
 
-Both follow the exact, unwindowed semantics of ``ops/splat.splat_bilinear``
-(the JAX lax path); the source notes say what bounds each kernel on the
-card. A tensor on the CPU takes the plain version (``ops/splat.py``, its
+Both follow the exact semantics of ``ops/splat.splat_bilinear`` (the JAX
+lax path), unwindowed or, with ``max_dy >= 0``, with the TPU kernel's
+vertical window (``fold_h``, ``base_offset``; the height-sharded render's
+splat); the source notes say what bounds each kernel on the card. A tensor on the CPU takes the plain version (``ops/splat.py``, its
 VJP by autograd); a CUDA tensor launches the kernel, and a failed build or
 launch raises. There is no fallback from one to the other.
 
@@ -116,6 +117,27 @@ def splat_tiling(values_shape, out_hw, aligned16: bool, *,
         smem_bytes=smem_bytes, vec4=c == 4 and aligned16))
 
 
+def window_base_rows(src_h: int, out_h: int, max_dy: int,
+                     fold_h=None, base_offset: int = 0):
+    """The windowed splat's base row of each source row, ``r % fold_h +
+    base_offset`` (``fold_h`` defaults to ``out_h``), as an int64 tensor on
+    the CPU; None for ``max_dy < 0`` (no window). Raises ValueError where
+    the TPU kernel does (``lsi_tpu/kernels/splat_pallas.py:262-271``)."""
+    if max_dy < 0:
+        return None
+    fold_h = out_h if fold_h is None else int(fold_h)
+    if fold_h <= 0 or src_h % fold_h:
+        raise ValueError(
+            f"folded-row contract violated: source rows {src_h} must be a "
+            f"multiple of fold_h {fold_h} (a source row r splats around "
+            "target base row r % fold_h + base_offset)")
+    if base_offset < 0 or base_offset + fold_h > out_h:
+        raise ValueError(
+            f"base rows [{base_offset}, {base_offset + fold_h}) must lie "
+            f"inside the target height {out_h}")
+    return torch.arange(src_h) % fold_h + base_offset
+
+
 def _check(values: torch.Tensor, coords: torch.Tensor,
            weights: torch.Tensor, out_hw) -> None:
     if values.ndim != 4:
@@ -135,7 +157,8 @@ def _check(values: torch.Tensor, coords: torch.Tensor,
 
 
 def splat(values: torch.Tensor, coords: torch.Tensor, weights: torch.Tensor,
-          out_hw, snap: bool = True):
+          out_hw, snap: bool = True, max_dy: int = -1, fold_h=None,
+          base_offset: int = 0):
     """Forward-splat ``values`` into an ``out_hw`` image (K1).
 
     Args:
@@ -146,20 +169,40 @@ def splat(values: torch.Tensor, coords: torch.Tensor, weights: torch.Tensor,
       out_hw:  (out_h, out_w).
       snap: snap the bilinear fractions (the render); False gives the
         transpose of the unsnapped gather (``GatherFn``'s image gradient).
+      max_dy, fold_h, base_offset: with ``max_dy >= 0``, drop every corner
+        whose row lies outside ``[base - max_dy, base + max_dy + 1]``,
+        ``base = r % fold_h + base_offset`` for source row r
+        (:func:`window_base_rows`); -1 (the default) is no window.
     Returns:
       accum (N, out_h, out_w, C) and wsum (N, out_h, out_w, 1), float32.
     """
     _check(values, coords, weights, out_hw)
     check_no_grad("splat", values, coords, weights)
+    base = window_base_rows(values.shape[1], int(out_hw[0]), max_dy, fold_h,
+                            base_offset)
     if not check_device(values.device):
-        return splat_bilinear(values, coords, weights, out_hw, snap=snap)
+        return splat_bilinear(values, coords, weights, out_hw, snap=snap,
+                              max_dy_window=None if base is None else max_dy,
+                              base_rows=base)
 
-    return _launch_splat(values, coords, weights, out_hw, snap)
+    return _launch_splat(values, coords, weights, out_hw, snap,
+                         window=_window(max_dy, fold_h, out_hw, base_offset))
 
 
-def _launch_splat(values, coords, weights, out_hw, snap, tiling=None):
+def _window(max_dy: int, fold_h, out_hw, base_offset: int):
+    """The kernels' (max_dy, fold_h, base_offset) arguments: (-1, 1, 0)
+    without a window."""
+    if max_dy < 0:
+        return (-1, 1, 0)
+    return (int(max_dy), int(out_hw[0]) if fold_h is None else int(fold_h),
+            int(base_offset))
+
+
+def _launch_splat(values, coords, weights, out_hw, snap, tiling=None,
+                  window=(-1, 1, 0)):
     """Launch K1 on CUDA tensors with ``tiling`` (default:
-    :func:`splat_tiling`'s choice) and count the launch."""
+    :func:`splat_tiling`'s choice) and ``window`` ((max_dy, fold_h,
+    base_offset), checked by the caller) and count the launch."""
     n, hs, ws, c = values.shape
     out_h, out_w = (int(v) for v in out_hw)
     coords = aligned(coords, 8)  # read as float2
@@ -174,21 +217,30 @@ def _launch_splat(values, coords, weights, out_hw, snap, tiling=None):
                  values.data_ptr(), coords.data_ptr(), weights.data_ptr(),
                  accum.data_ptr(), wsum.data_ptr(), n, hs, ws, c, out_h,
                  out_w, int(snap), tiling.block[0], tiling.tile[0],
-                 tiling.smem_bytes, int(tiling.vec4))
+                 tiling.smem_bytes, int(tiling.vec4), *window)
     splat.launches += 1
+    splat.window_launches += window[0] >= 0
     return accum, wsum
 
 
-#: Kernel launches made through :func:`splat` (CPU calls do not count).
+#: Kernel launches made through :func:`splat` (CPU calls do not count),
+#: and how many of them were windowed.
 splat.launches = 0
+splat.window_launches = 0
 
 
-def _plain_vjp(values, coords, weights, g_accum, g_wsum, out_hw, needs):
-    """The plain VJP: autograd through ``splat_bilinear``."""
+def _plain_vjp(values, coords, weights, g_accum, g_wsum, out_hw, needs,
+               max_dy: int = -1, fold_h=None, base_offset: int = 0):
+    """The plain VJP: autograd through ``splat_bilinear``, windowed as
+    :func:`splat` is."""
+    base = window_base_rows(values.shape[1], int(out_hw[0]), max_dy, fold_h,
+                            base_offset)
     inputs = [t.detach().requires_grad_(need)
               for t, need in zip((values, coords, weights), needs)]
     with torch.enable_grad():
-        accum, wsum = splat_bilinear(*inputs, out_hw)
+        accum, wsum = splat_bilinear(
+            *inputs, out_hw, max_dy_window=None if base is None else max_dy,
+            base_rows=base)
         wanted = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad((accum, wsum), wanted,
                                          (g_accum, g_wsum)))
@@ -197,7 +249,8 @@ def _plain_vjp(values, coords, weights, g_accum, g_wsum, out_hw, needs):
 
 def splat_vjp(values: torch.Tensor, coords: torch.Tensor,
               weights: torch.Tensor, g_accum: torch.Tensor,
-              g_wsum: torch.Tensor, out_hw, needs=(True, True, True)):
+              g_wsum: torch.Tensor, out_hw, needs=(True, True, True),
+              max_dy: int = -1, fold_h=None, base_offset: int = 0):
     """The splat's VJP (K2 + K3) at the forward's inputs.
 
     Args:
@@ -205,6 +258,7 @@ def splat_vjp(values: torch.Tensor, coords: torch.Tensor,
       g_accum: (N, out_h, out_w, C) and g_wsum (N, out_h, out_w, 1)
         float32 cotangents of the forward's outputs.
       needs: which of (d_values, d_coords, d_weights) to compute.
+      max_dy, fold_h, base_offset: the forward's window (:func:`splat`).
     Returns:
       (d_values, d_coords, d_weights), shaped as the inputs, None where not
       needed. ``d_coords`` is 0 where a fraction lies in a snap zone.
@@ -221,7 +275,8 @@ def splat_vjp(values: torch.Tensor, coords: torch.Tensor,
     needs = tuple(bool(x) for x in needs)
     if not check_device(values.device):
         return _plain_vjp(values, coords, weights, g_accum, g_wsum, out_hw,
-                          needs)
+                          needs, max_dy, fold_h, base_offset)
+    window_base_rows(hs, out_h, max_dy, fold_h, base_offset)  # checks
 
     outs = [torch.empty_like(t) if need else None
             for t, need in zip((values, coords, weights), needs)]
@@ -229,35 +284,44 @@ def splat_vjp(values: torch.Tensor, coords: torch.Tensor,
     build.launch("splat_bwd", "lsi_splat_vjp", values.device,
                  values.data_ptr(), coords.data_ptr(), weights.data_ptr(),
                  g_accum.data_ptr(), g_wsum.data_ptr(), *ptrs, n, hs, ws, c,
-                 out_h, out_w)
+                 out_h, out_w, *_window(max_dy, fold_h, out_hw, base_offset))
     splat_vjp.launches += 1
+    splat_vjp.window_launches += max_dy >= 0
     return tuple(outs)
 
 
-#: Kernel launches made through :func:`splat_vjp` (CPU calls do not count).
+#: Kernel launches made through :func:`splat_vjp` (CPU calls do not count),
+#: and how many of them were windowed.
 splat_vjp.launches = 0
+splat_vjp.window_launches = 0
 
 
 class SplatFn(torch.autograd.Function):
     """Differentiable splat: K1 forward, K2 + K3 backward.
 
     ``SplatFn.apply(values, coords, weights, out_hw) -> (accum, wsum)``;
-    the backward computes only the gradients autograd asks for.
+    ``SplatFn.apply(values, coords, weights, out_hw, max_dy, fold_h,
+    base_offset)`` is the windowed splat (:func:`splat`), whose gradients
+    are the window's too. The backward computes only the gradients
+    autograd asks for.
     """
 
     @staticmethod
-    def forward(ctx, values, coords, weights, out_hw):
+    def forward(ctx, values, coords, weights, out_hw, max_dy=-1, fold_h=None,
+                base_offset=0):
         ctx.out_hw = tuple(int(v) for v in out_hw)
+        ctx.window = dict(max_dy=max_dy, fold_h=fold_h,
+                          base_offset=base_offset)
         ctx.save_for_backward(values, coords, weights)
-        return splat(values, coords, weights, ctx.out_hw)
+        return splat(values, coords, weights, ctx.out_hw, **ctx.window)
 
     @staticmethod
     def backward(ctx, g_accum, g_wsum):
         needs = ctx.needs_input_grad[:3]
         if not any(needs):
-            return None, None, None, None
+            return None, None, None, None, None, None, None
         values, coords, weights = ctx.saved_tensors
         d_values, d_coords, d_weights = splat_vjp(
             values, coords, weights, g_accum.float().contiguous(),
-            g_wsum.float().contiguous(), ctx.out_hw, needs)
-        return d_values, d_coords, d_weights, None
+            g_wsum.float().contiguous(), ctx.out_hw, needs, **ctx.window)
+        return d_values, d_coords, d_weights, None, None, None, None

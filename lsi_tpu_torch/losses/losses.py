@@ -17,6 +17,13 @@ arguments, as ``jnp.minimum``/``jnp.maximum`` do. Ties are common: an
 invalid layer carries the same large error as every other invalid layer,
 and ``valid`` is 1.0 in every layer that lands inside the image.
 
+Every loss is a ratio of sums, or a mean, over the batch. Each sum is
+taken by ``parallel.mesh.batch_sum`` (a mean by ``batch_mean``), which is
+``x.sum()`` in one process and the sum over the data-parallel ranks inside
+``parallel.mesh.reduce_batch``, so that a data-parallel step computes the
+global batch's loss and gradient, as JAX's sharded step does (a mean of
+per-rank ratios would be another number).
+
 The refuted knobs ``photo_layer0_weight``, ``consistency_ema_teacher``
 and ``consistency_stop_step`` are not ported (ROADMAP "Do not port").
 """
@@ -36,6 +43,7 @@ from lsi_tpu_torch.geometry.ldi import (LDI, project_layers_folded,
 from lsi_tpu_torch.kernels.gather_cuda import GatherFn
 from lsi_tpu_torch.models.mpi import MPI, mpi_source_disparity, render_mpi
 from lsi_tpu_torch.geometry.transforms import invert_pose
+from lsi_tpu_torch.parallel.mesh import batch_mean, batch_sum
 from lsi_tpu_torch.utils.helpers import divide_safe
 
 # Error given to samples that fell outside the target view, so the min over
@@ -152,7 +160,7 @@ def view_synthesis_inverse_warp(ldi: LDI, target_image: torch.Tensor,
             valid.sum(dim=1))
     any_valid = valid.amax(dim=1)
     per_pixel = torch.where(any_valid > 0.5, per_pixel, 0.0)
-    loss = divide_safe(per_pixel.sum(), any_valid.sum())
+    loss = divide_safe(batch_sum(per_pixel), batch_sum(any_valid))
     return (loss, {}) if return_diag else loss
 
 
@@ -173,7 +181,7 @@ def view_synthesis_splat(ldi: LDI, target_image: torch.Tensor,
     covered = (out["coverage"] > 0).float()
     trg32 = target_image.float()
     err = _charbonnier(out["rgb"] - trg32).mean(-1, keepdim=True)
-    photo = divide_safe((err * covered).sum(), covered.sum())
+    photo = divide_safe(batch_sum(err * covered), batch_sum(covered))
     if ssim_weight > 0.0:
         structural = (1.0 - ssim(out["rgb"], trg32, mask=covered)) / 2.0
         photo = ssim_weight * structural + (1.0 - ssim_weight) * photo
@@ -203,7 +211,7 @@ def disparity_smoothness(ldi: LDI, edge_aware: bool = True,
             wy = torch.where(layer_is_0, wy, 1.0)
         dx = dx * wx
         dy = dy * wy
-    return dx.mean() + dy.mean()
+    return batch_mean(dx) + batch_mean(dy)
 
 
 def depth_consistency(ldi_src: LDI, ldi_trg: LDI,
@@ -253,7 +261,7 @@ def depth_consistency(ldi_src: LDI, ldi_trg: LDI,
     if stop_target:
         target = target.detach()
     err = _charbonnier(rendered_disp - target)
-    return divide_safe((err * mask).sum(), mask.sum())
+    return divide_safe(batch_sum(err * mask), batch_sum(mask))
 
 
 def depth_supervision(ldi: LDI, gt_disparity: torch.Tensor,
@@ -261,7 +269,7 @@ def depth_supervision(ldi: LDI, gt_disparity: torch.Tensor,
     """Charbonnier on layer-0 disparity where ground truth exists."""
     pred = ldi.disparities[:, 0]  # (B, H, W, 1)
     err = _charbonnier(pred - gt_disparity) * valid
-    return divide_safe(err.sum(), valid.sum())
+    return divide_safe(batch_sum(err), batch_sum(valid))
 
 
 def total_loss(ldi: LDI, target_image: torch.Tensor,
@@ -377,7 +385,7 @@ def mpi_smoothness(disp: torch.Tensor, image: torch.Tensor,
         gy = _abs(img[:, 1:, :] - img[:, :-1, :]).mean(-1)
         dx = dx * torch.exp(-10.0 * gx)
         dy = dy * torch.exp(-10.0 * gy)
-    return dx.mean() + dy.mean()
+    return batch_mean(dx) + batch_mean(dy)
 
 
 def mpi_total_loss(mpi: MPI, src_image: torch.Tensor,
@@ -404,9 +412,9 @@ def mpi_total_loss(mpi: MPI, src_image: torch.Tensor,
     err = _charbonnier(out["rgb"] - target_image.float()).mean(
         -1, keepdim=True)
     parts = {
-        "photo_mpi": loss_cfg.splat_weight * err.mean(),
-        "alpha_coverage": alpha_coverage_weight * (
-            (1.0 - out["alpha"]) ** 2).mean(),
+        "photo_mpi": loss_cfg.splat_weight * batch_mean(err),
+        "alpha_coverage": alpha_coverage_weight * batch_mean(
+            (1.0 - out["alpha"]) ** 2),
     }
     src_disp = mpi_source_disparity(mpi)
     if loss_cfg.smoothness_weight > 0:
@@ -418,6 +426,6 @@ def mpi_total_loss(mpi: MPI, src_image: torch.Tensor,
         err_d = _charbonnier(src_disp - gt_disparity) * gt_valid
         parts["depth_supervision"] = (
             loss_cfg.depth_supervision_weight
-            * divide_safe(err_d.sum(), gt_valid.sum()))
+            * divide_safe(batch_sum(err_d), batch_sum(gt_valid)))
     parts["total"] = sum(parts.values())
     return parts

@@ -1,12 +1,13 @@
 """Forward bilinear splat (scatter-add) and its tent sums: the plain
 PyTorch versions.
 
-PyTorch counterpart of ``lsi_tpu/ops/splat.py`` (``method="scatter"``, no
-vertical window). ``splat_bilinear`` is the CPU path of
+PyTorch counterpart of ``lsi_tpu/ops/splat.py`` (``method="scatter"``,
+with its optional per-corner vertical window, ``max_dy_window`` and
+``base_rows``). ``splat_bilinear`` is the CPU path of
 ``kernels.splat_cuda.splat`` (K1) and, through autograd, of its VJP (K2 +
-K3); ``tent_sums`` is the plain form of the per-pixel sums those kernels
-and the gather kernels compute. The CUDA kernels are held against these
-on the card.
+K3), windowed or not; ``tent_sums`` is the plain form of the per-pixel
+sums those kernels and the gather kernels compute. The CUDA kernels are
+held against these on the card.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ def snap_fraction(f: torch.Tensor) -> torch.Tensor:
 
 
 def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
-                   weights: torch.Tensor, out_hw, snap: bool = True):
+                   weights: torch.Tensor, out_hw, snap: bool = True,
+                   max_dy_window=None, base_rows=None):
     """Forward-splat per-pixel values into a target image.
 
     Args:
@@ -42,6 +44,11 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
       snap: snap the bilinear fractions (the render's splat). Without it
         the splat is the exact transpose of ``ops.gather.bilinear_sample``
         (the gather's image gradient).
+      max_dy_window: with an int m, a corner whose target row ``yi`` has
+        ``yi - base`` outside ``[-m, m + 1]`` is dropped, corner by corner
+        (the windowed contract of the TPU splat kernel, which the
+        height-sharded render relies on). ``base`` is the source row's
+        base row: ``base_rows`` (Hs,) integers, or ``row % out_h``.
     Returns:
       accum (N, out_h, out_w, C) float32 sum of ``w * frac * v`` and
       wsum (N, out_h, out_w, 1) float32 sum of ``w * frac``.
@@ -71,6 +78,13 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
     trash = n * out_h * out_w
     batch_off = (torch.arange(n, device=dev, dtype=torch.int64)
                  * (out_h * out_w))[:, None]
+    if max_dy_window is not None:
+        if base_rows is None:
+            base_rows = torch.arange(hs, device=dev) % out_h
+        # Per source pixel, as float: the test below is exact, since it
+        # only decides for rows inside the image (small integers).
+        base = base_rows.to(device=dev, dtype=torch.float32)[:, None] \
+            .expand(hs, ws).reshape(1, p)
     zero = torch.zeros_like(x)
     idxs = []
     wts = []
@@ -81,6 +95,9 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
         xi = x0 + dx
         yi = y0 + dy
         inb = (xi >= 0) & (xi <= out_w - 1) & (yi >= 0) & (yi <= out_h - 1)
+        if max_dy_window is not None:
+            ky = yi - base
+            inb &= (ky >= -max_dy_window) & (ky <= max_dy_window + 1)
         lin = (batch_off
                + torch.where(inb, yi, zero).to(torch.int64) * out_w
                + torch.where(inb, xi, zero).to(torch.int64))

@@ -26,6 +26,13 @@ matches the JAX package step for step:
 Unlike the JAX step, which returns a new state, ``step_fn`` updates the
 state in place (parameters, moments, counters) and returns it.
 
+Data parallelism (JAX: the step sharded over a ``MeshPlan``) takes a
+``parallel.mesh.ProcessPlan``: each rank holds its share of the global
+batch, the losses' batch sums are all-reduced in the forward
+(``reduce_batch``), and the ranks' gradients are summed before the
+optimizer, so the clip, the finiteness test and the schedule see the
+global batch's gradient and every rank applies the same update.
+
 Not ported yet (raise ``NotImplementedError``): ``remat_decoder`` and
 ``collapse_rollback_threshold > 0`` (ROADMAP Queue 1). The refuted knobs
 (the EMA teacher, ``consistency_stop_step``) are not ported (ROADMAP "Do
@@ -58,6 +65,9 @@ from lsi_tpu_torch.losses.losses import (check_loss_config, mpi_total_loss,
 from lsi_tpu_torch.models import build_model
 from lsi_tpu_torch.models.ldi_predictor import (freeze_layer0_grad_mask,
                                                 splice_layer0_params)
+from lsi_tpu_torch.parallel.mesh import (ProcessPlan, all_reduce_grads,
+                                         assert_divisible, batch_slice,
+                                         broadcast_params, reduce_batch)
 from lsi_tpu_torch.train.checkpoint import (CheckpointManager,
                                             export_params_npz,
                                             import_params_npz,
@@ -187,11 +197,11 @@ def check_train_config(cfg: Config) -> None:
             f"unknown model family {cfg.model.family!r}; use ldi|mpi")
     if cfg.train.remat_decoder:
         raise NotImplementedError(
-            "remat_decoder is not ported yet (ROADMAP Queue 1, item 3)")
+            "remat_decoder is not ported yet (ROADMAP Queue 1, M8)")
     if cfg.train.collapse_rollback_threshold > 0:
         raise NotImplementedError(
             "collapse_rollback_threshold > 0 (the collapse rollback) is not "
-            "ported yet (ROADMAP Queue 1, item 5)")
+            "ported yet (ROADMAP Queue 1, M9)")
     check_loss_config(cfg.loss)
     check_render_config(cfg.render)
 
@@ -280,7 +290,8 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
 
 
 def make_train_step(cfg: Config, stage_layer0: bool = False,
-                    freeze_layer0: bool = False):
+                    freeze_layer0: bool = False,
+                    plan: Optional[ProcessPlan] = None):
     """Build ``step_fn(state, batch) -> (state, metrics)``.
 
     ``metrics`` holds the loss parts, ``total``, ``window_dropped_frac``
@@ -293,12 +304,20 @@ def make_train_step(cfg: Config, stage_layer0: bool = False,
     AND the updates of every parameter entry layer 0's output depends on
     are zeroed, so layer 0 stays bitwise constant
     (``models.ldi_predictor.freeze_layer0_grad_mask``).
+
+    With a ``plan`` whose data axis has several ranks, ``batch`` is this
+    rank's share of the global batch, and the loss parts, ``grad_norm``
+    and the update are the global batch's on every rank (the gradients
+    are summed in one collective, range ``train_step/all_reduce``).
     """
     check_train_config(cfg)
     opt = Optimizer(cfg)
 
     def step_fn(state: TrainState, batch: Batch):
-        parts, grads = loss_and_grads(state, batch, cfg, stage_layer0)
+        with reduce_batch(plan):
+            parts, grads = loss_and_grads(state, batch, cfg, stage_layer0)
+        with record_function("train_step/all_reduce"):
+            grads = all_reduce_grads(plan, grads)
         with record_function("train_step/optimizer"):
             if freeze_layer0:
                 grads = freeze_layer0_grad_mask(cfg.model, grads)
@@ -338,24 +357,43 @@ class Trainer:
 
     ``device`` defaults to the card; with no CUDA device it raises (pass
     ``device="cpu"`` to train on the CPU).
+
+    With a ``plan`` (``parallel.mesh.make_process_plan``, e.g. under
+    ``torchrun``) the run is data-parallel: ``data.batch_size`` is the
+    global batch, every rank makes it from the seed and steps on its
+    share, every rank restores the checkpoint on resume, and rank 0 alone
+    writes the jsonl, the checkpoints and the best export, runs the evals
+    on whole batches (the numbers of a one-process run), and splices
+    layer 0 at the freeze, whose parameters it then broadcasts.
     """
 
     BEST_NPZ = "best_params.npz"
 
-    def __init__(self, config: Config, device="cuda"):
+    def __init__(self, config: Config, device="cuda",
+                 plan: Optional[ProcessPlan] = None):
         cfg = self.config = config
-        self.device = resolve_device(device)
+        self.plan = plan
+        self.device = plan.device if plan is not None else resolve_device(
+            device)
+        self.is_main = plan is None or plan.is_main
         check_train_config(cfg)
         t, lcfg = cfg.train, cfg.loss
-        self.writer = MetricWriter(t.checkpoint_dir)
+        if plan is not None:
+            assert_divisible(cfg.data.batch_size, plan)
+        self.writer = MetricWriter(t.checkpoint_dir if self.is_main
+                                   else None)
         self.ckpt = CheckpointManager(t.checkpoint_dir, t.max_to_keep)
-        self.step_fns = {"full": make_train_step(cfg)}
+
+        def step(c=cfg, **kw):
+            return make_train_step(c, plan=plan, **kw)
+
+        self.step_fns = {"full": step()}
         if t.stage_layer0_steps > 0:
-            self.step_fns["stage"] = make_train_step(cfg, stage_layer0=True)
+            self.step_fns["stage"] = step(stage_layer0=True)
         if lcfg.consistency_weight > 0 and lcfg.consistency_start_step > 0:
             # Pseudo-labels from a fresh network are noise: before the
             # start step the term is dropped; the anchor stays on.
-            self.step_fns["warmup"] = make_train_step(cfg.replace(
+            self.step_fns["warmup"] = step(cfg.replace(
                 loss=dataclasses.replace(lcfg, consistency_weight=0.0)))
         fz = t.freeze_layer0_step
         if t.freeze_layer0_from_best:
@@ -388,7 +426,7 @@ class Trainer:
                     f"train.freeze_layer0_step={fz} must be >= "
                     f"loss.consistency_start_step={lcfg.consistency_start_step}"
                     " (the freeze is the LAST phase)")
-            self.step_fns["freeze"] = make_train_step(cfg, freeze_layer0=True)
+            self.step_fns["freeze"] = step(freeze_layer0=True)
         self._eval_step = None
         self._eval_iter = None
         self._best_eval_abs_rel = None
@@ -504,7 +542,14 @@ class Trainer:
         """At the freeze boundary: every layer-0-owned parameter entry from
         ``best_params.npz``, the rest live. Params only: the Adam moments
         are kept. The provenance printed comes from the npz's own
-        metadata."""
+        metadata. Data-parallel: rank 0 splices, every rank then takes its
+        parameters."""
+        if self.is_main:
+            state = self._splice_best_layer0(state)
+        broadcast_params(self.plan, state.net)
+        return state
+
+    def _splice_best_layer0(self, state: TrainState) -> TrainState:
         cfg = self.config
         npz = self._path(self.BEST_NPZ)
         if not os.path.exists(npz):
@@ -544,7 +589,7 @@ class Trainer:
         state = create_state(cfg, seed=t.seed, device=self.device)
         state = self.ckpt.restore(state)
         start_step = state.step
-        if start_step == 0:
+        if start_step == 0 and self.is_main:
             # A fresh start in a reused directory: another run's best
             # export must neither seed the trackers nor be spliced into
             # layer 0, and its jsonl lines must not seed the drift
@@ -557,10 +602,12 @@ class Trainer:
                           f"{t.checkpoint_dir}", flush=True)
             self._drift_seeded = True
         if data_iter is None:
-            data_iter = batch_stream(cfg.data, seed=t.seed,
-                                     device=self.device)
+            data_iter = batch_stream(
+                cfg.data, seed=t.seed, device=self.device,
+                examples=None if self.plan is None else batch_slice(
+                    cfg.data.batch_size, self.plan))
         profiler = None
-        if t.profile_dir:
+        if t.profile_dir and self.is_main:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -588,7 +635,8 @@ class Trainer:
                         # the checkpoints, which resume would restore.
                         dump = self._path(
                             f"nan_debug_params_step{step + 1}.npz")
-                        export_params_npz(state.net.state_dict(), dump)
+                        if self.is_main:
+                            export_params_npz(state.net.state_dict(), dump)
                         raise FloatingPointError(
                             f"non-finite loss at step {step + 1}: {metrics} "
                             f"(params dumped to {dump})")
@@ -596,15 +644,17 @@ class Trainer:
                     metrics["steps_per_sec"] = steps / (now - t_last)
                     metrics["frames_per_sec"] = frames / (now - t_last)
                     t_last, steps, frames = now, 0, 0
-                    self.writer.write(step + 1, metrics)
+                    self.writer.write(step + 1, metrics,
+                                      echo=self.is_main)
                     last_metrics = metrics
 
-                if t.eval_every and ((step + 1) % t.eval_every == 0
-                                     or step + 1 == max_steps):
+                if self.is_main and t.eval_every and (
+                        (step + 1) % t.eval_every == 0
+                        or step + 1 == max_steps):
                     last_metrics.update(self.run_eval(state, step + 1))
 
-                if (step + 1) % t.checkpoint_every == 0 \
-                        or step + 1 == max_steps:
+                if self.is_main and ((step + 1) % t.checkpoint_every == 0
+                                     or step + 1 == max_steps):
                     self.ckpt.save(step + 1, state)
         finally:
             if profiler is not None:

@@ -211,13 +211,18 @@ def main() -> None:
     result = {"card": smi, "ptxas": ptxas, "k1": [], "gather_fwd": [],
               "splat_vjp": [], "gather_bwd_coords": []}
 
+    # The parent's entry points take the tiling this tree's wrappers choose
+    # (the window arguments, this tree's, are left at their defaults).
     def parent_splat(values, coords, weights, out_hw, snap):
         n, hs, ws, c = values.shape
         acc = torch.zeros((n, *out_hw, c), device=dev)
         wsum = torch.zeros((n, *out_hw, 1), device=dev)
+        t = splat_cuda.splat_tiling(values.shape, out_hw, aligned16=all(
+            x.data_ptr() % 16 == 0 for x in (values, acc)))
         pb.launch("splat_fwd", "lsi_splat_fwd", dev, values.data_ptr(),
                   coords.data_ptr(), weights.data_ptr(), acc.data_ptr(),
-                  wsum.data_ptr(), n, hs, ws, c, *out_hw, int(snap))
+                  wsum.data_ptr(), n, hs, ws, c, *out_hw, int(snap),
+                  t.block[0], t.tile[0], t.smem_bytes, int(t.vec4))
         return acc, wsum
 
     def parent_gather(image, coords):
@@ -225,9 +230,10 @@ def main() -> None:
         _, hs, ws, _ = coords.shape
         sampled = torch.empty((n, hs, ws, c), device=dev)
         valid = torch.empty((n, hs, ws, 1), device=dev)
+        t = gather_cuda.gather_tiling(image.shape, coords.shape)
         pb.launch("splat_bwd", "lsi_gather_fwd", dev, image.data_ptr(),
                   coords.data_ptr(), sampled.data_ptr(), valid.data_ptr(),
-                  n, hs, ws, c, hi, wi)
+                  n, hs, ws, c, hi, wi, t.grid[1], t.tile[0], t.row_stride)
         return sampled, valid
 
     def parent_vjp(values, coords, weights, g_acc, g_ws, out_hw):

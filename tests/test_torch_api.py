@@ -172,9 +172,11 @@ def test_entry_points_default_to_cuda(tmp_path):
 def test_port_never_imports_jax():
     """A fresh interpreter serves predict_ldi -> render, takes one train
     step of a toy kitti_ldi3_b16, and trains a toy kitti_ldi3_quality and
-    a toy mpi_baseline for one step each through the training CLI and
-    scores them through the eval CLI, all through the port, with neither
-    JAX nor any module of the JAX package loaded."""
+    a toy mpi_baseline for one step each through the training CLI (the
+    first with ``--dist_backend``) and scores them through the eval CLI,
+    and renders height-sharded over two spawned gloo ranks (the parallel
+    modules), all through the port, with neither JAX nor any module of the
+    JAX package loaded."""
     code = textwrap.dedent("""
         import dataclasses
         import math
@@ -218,7 +220,8 @@ def test_port_never_imports_jax():
                     "loss.consistency_start_step=0",
                     f"train.checkpoint_dir={ckpt}"]
             state, metrics = train_main(["--config=kitti_ldi3_quality",
-                                         "--device", "cpu", "--set", *sets])
+                                         "--device", "cpu", "--dist_backend",
+                                         "gloo", "--set", *sets])
             assert state.step == 1 and "depth_consistency" in metrics
             results = eval_main(["--config=kitti_ldi3_quality", "--device",
                                  "cpu", "--num_batches", "1", "--set", *sets])
@@ -235,6 +238,18 @@ def test_port_never_imports_jax():
             results = eval_main(["--config=mpi_baseline", "--device", "cpu",
                                  "--num_batches", "1", "--set", *sets])
             assert math.isfinite(results["abs_rel"])
+        import numpy as np
+        from lsi_tpu_torch.parallel import launch, mesh, spatial
+        with tempfile.TemporaryDirectory() as d:
+            arrays = {"textures": np.random.rand(1, 2, 16, 32, 3),
+                      "disparities": np.full((1, 2, 16, 32, 1), 0.2),
+                      "intrinsics": np.array([[[30.0, 0, 16], [0, 30, 8],
+                                               [0, 0, 1]]])}
+            arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+            pose = translation_pose([[-0.1, 0.0, 0.0]]).numpy()
+            out = launch.spawn(launch.spatial_render, 2, arrays, pose, 50.0,
+                               1, init_file=d + "/store", space=2)
+            assert [o["rgb"].shape for o in out] == [(1, 8, 32, 3)] * 2
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "lsi_tpu"))
         assert not bad, bad

@@ -4,7 +4,8 @@ launch counts, the render and golden fixture on CUDA, K1 at the layer-0
 render's shape and the no-grad disocclusion render, one train step of
 each kind (single and two predictions), the MPI baseline's plane warp
 (GatherFn with the image's gradient, K1 unsnapped) at its shapes, the MPI
-step and the candidate gathers.
+step and the candidate gathers, and the windowed mode of K1 and the splat
+VJP (the height-sharded render's splat) against the plain windowed splat.
 
 Every test needs a CUDA card (marker ``gpu``) and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed; there,
@@ -686,3 +687,109 @@ def test_candidate_gathers_on_cuda_match_cpu(cuda, radius):
         # Where two candidates' errors lie within the devices' rounding
         # the min may pick another one (ROADMAP H10): in aggregate.
         assert float((got - want).norm()) <= 1e-3 * float(want.norm())
+
+
+# ------------------------------------------------------- the dy window
+
+def window_inputs(seed, n, layers, fold_h, ws, c, max_dy, base_offset,
+                  kind):
+    """Inputs of the windowed splat: rows within max_dy + 3 of each source
+    row's base row ``r % fold_h + base_offset`` in a target of ``fold_h +
+    2 base_offset`` rows, a third of them on integer rows (corners exactly
+    on the window's edges); with ``kind="huge"`` also +-1e6, inf and nan
+    coordinates (H9)."""
+    rng = np.random.default_rng(seed)
+    hs = layers * fold_h
+    values = rng.uniform(size=(n, hs, ws, c)).astype(np.float32)
+    weights = rng.uniform(0.1, 1.0, (n, hs, ws, 1)).astype(np.float32)
+    base = np.arange(hs) % fold_h + base_offset
+    x = np.arange(ws, dtype=np.float32)[None, None] + rng.uniform(
+        -6, 6, (n, hs, ws))
+    y = base[None, :, None] + rng.uniform(-max_dy - 3, max_dy + 3,
+                                          (n, hs, ws))
+    y[:, :, ::3] = np.round(y[:, :, ::3])
+    if kind == "huge":
+        x[rng.uniform(size=(n, hs, ws)) < 0.1] = 1e6
+        y[rng.uniform(size=(n, hs, ws)) < 0.1] = -1e6
+        x[0, 0, :3] = [np.nan, np.inf, -np.inf]
+    coords = np.stack([x, y], -1).astype(np.float32)
+    return values, coords, weights, (fold_h + 2 * base_offset, ws)
+
+
+# (layers, fold_h, width): whole tiles, and ragged last tiles in both
+# directions (K1's tile is 4 x 128 source pixels by default).
+WINDOW_SHAPES = [(2, 16, 128), (3, 13, 130)]
+
+
+@pytest.mark.parametrize("shape", WINDOW_SHAPES)
+@pytest.mark.parametrize("max_dy, base_offset", [(0, 0), (1, 3), (2, 4)])
+@pytest.mark.parametrize("kind", ["random", "huge"])
+def test_windowed_splat_matches_plain(cuda, shape, max_dy, base_offset,
+                                      kind):
+    """K1 and lsi_splat_vjp with (max_dy, fold_h, base_offset) against the
+    plain windowed splat and autograd through it (SplatFn both ways)."""
+    layers, fold_h, ws = shape
+    *arrays, out_hw = window_inputs(5, 2, layers, fold_h, ws, 4, max_dy,
+                                    base_offset, kind)
+    base = torch.arange(layers * fold_h, device=cuda) % fold_h + base_offset
+    window = (max_dy, fold_h, base_offset)
+    outs = []
+    for on_card in (True, False):
+        ins = [torch.from_numpy(a).to(cuda).requires_grad_() for a in arrays]
+        if on_card:
+            fwd = splat_cuda.SplatFn.apply(*ins, out_hw, *window)
+        else:
+            fwd = splat_bilinear(*ins, out_hw, max_dy_window=max_dy,
+                                 base_rows=base)
+        cots = cotangents_like(9, *fwd)
+        outs.append((fwd, torch.autograd.grad(fwd, ins, cots)))
+    torch.cuda.synchronize()
+    (k_fwd, k_grad), (p_fwd, p_grad) = outs
+    for got, want in zip(k_fwd, p_fwd):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    finite = torch.from_numpy(np.isfinite(arrays[1]).all(-1)).to(cuda)
+    for got, want in zip(k_grad, p_grad):
+        # The plain gradient is nan at non-finite coordinates (H11): the
+        # kernel's is 0 there. Compare the finite pixels.
+        atol = 1e-5 * float(want[finite].abs().max())
+        torch.testing.assert_close(got[finite], want[finite], rtol=1e-4,
+                                   atol=atol)
+        if (~finite).any():
+            assert float(got[~finite].abs().max()) == 0.0
+
+
+def test_window_drops_corners_from_the_shared_box(cuda):
+    """A block whose corners are all dropped by the window writes nothing
+    (the dropped corners leave the block's bounding box too), and the
+    unwindowed call on the same inputs is unchanged (max_dy = -1)."""
+    fold_h, base_offset, ws = 8, 4, 128
+    coords = torch.zeros(1, fold_h, ws, 2, device=cuda)
+    coords[..., 0] = torch.arange(ws, device=cuda, dtype=torch.float32)
+    # Every pixel 3 rows below its base: outside a window of 1.
+    coords[..., 1] = (torch.arange(fold_h, device=cuda)[:, None]
+                      + base_offset + 3).float()
+    values = torch.ones(1, fold_h, ws, 4, device=cuda)
+    weights = torch.ones(1, fold_h, ws, 1, device=cuda)
+    out_hw = (fold_h + 2 * base_offset, ws)
+    acc, wsum = splat_cuda.splat(values, coords, weights, out_hw, max_dy=1,
+                                 fold_h=fold_h, base_offset=base_offset)
+    assert float(acc.abs().max()) == 0.0 and float(wsum.abs().max()) == 0.0
+    acc, wsum = splat_cuda.splat(values, coords, weights, out_hw, max_dy=2,
+                                 fold_h=fold_h, base_offset=base_offset)
+    assert float(wsum.sum()) == fold_h * ws
+    want = splat_bilinear(values, coords, weights, out_hw)
+    for got, w in zip(splat_cuda.splat(values, coords, weights, out_hw),
+                      want):
+        torch.testing.assert_close(got, w, rtol=1e-6, atol=1e-6)
+
+
+def test_window_arguments_raise_before_a_launch(cuda):
+    *arrays, out_hw = window_inputs(6, 1, 2, 8, 64, 4, 1, 3, "random")
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    before = splat_cuda.splat.launches
+    with pytest.raises(ValueError, match="fold_h"):
+        splat_cuda.splat(*args, out_hw, max_dy=1, fold_h=5, base_offset=3)
+    with pytest.raises(ValueError, match="inside the target"):
+        splat_cuda.splat(*args, out_hw, max_dy=1, fold_h=8, base_offset=7)
+    assert splat_cuda.splat.launches == before
