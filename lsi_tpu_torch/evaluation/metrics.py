@@ -11,7 +11,7 @@ from typing import Dict, Optional
 
 import torch
 
-from lsi_tpu_torch.parallel.mesh import batch_mean, batch_sum
+from lsi_tpu_torch.parallel.reduce import batch_mean, batch_sum
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor,
@@ -48,15 +48,16 @@ def _filter2d(img: torch.Tensor, k1d: torch.Tensor) -> torch.Tensor:
 
 
 def ssim(pred: torch.Tensor, target: torch.Tensor, max_val: float = 1.0,
-         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+         mask: Optional[torch.Tensor] = None,
+         data_group=None) -> torch.Tensor:
     """Mean SSIM over the batch, 11x11 Gaussian windows (sigma 1.5).
 
     Inputs (B, H, W, C) in [0, max_val]; returns a 0-d tensor. With
     ``mask`` (B, H, W, 1), window statistics are taken over the masked
     pixels only (means and variances renormalised by the window's mask
-    mass) and each window's score is weighted by that mass. The mean is
-    over the global batch inside ``parallel.mesh.reduce_batch`` (the
-    data-parallel training loss).
+    mass) and each window's score is weighted by that mass. With a
+    ``data_group`` the mean is over the global batch of those ranks (the
+    data-parallel training loss; ``parallel.reduce``).
     """
     c1 = (0.01 * max_val) ** 2
     c2 = (0.03 * max_val) ** 2
@@ -85,9 +86,10 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, max_val: float = 1.0,
     score = ((2 * mu_xy + c1) * (2 * sigma_xy + c2)
              / ((mu_x2 + mu_y2 + c1) * (sigma_x + sigma_y + c2)))
     if weight is None:
-        return batch_mean(score)
+        return batch_mean(score, data_group)
     w = weight.expand_as(score)
-    return batch_sum(score * w) / torch.clamp(batch_sum(w), min=1e-8)
+    return batch_sum(score * w, data_group) / torch.clamp(
+        batch_sum(w, data_group), min=1e-8)
 
 
 def depth_metrics(pred_disparity: torch.Tensor, gt_disparity: torch.Tensor,

@@ -11,20 +11,23 @@ the soft z-buffer blend comes from the shared normalization of the
 Both are differentiable: the splat goes through
 ``kernels.splat_cuda.SplatFn`` and the gather through
 ``kernels.gather_cuda.GatherFn`` (the CUDA kernels for CUDA tensors, the
-plain versions for CPU tensors). Both are exact (no vertical window), so
-``window_dropped_frac`` is always 0.
+plain versions for CPU tensors). The render is exact unless the caller
+asks for the TPU kernel's vertical window (``pallas_max_dy``), which the
+height-sharded render (``parallel.spatial``) is held to; the gather is
+exact.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from lsi_tpu_torch.geometry import projection
 from lsi_tpu_torch.kernels.gather_cuda import GatherFn
 from lsi_tpu_torch.kernels.splat_cuda import SplatFn
+from lsi_tpu_torch.ops.splat import snap_fraction
 from lsi_tpu_torch.utils.helpers import divide_safe
 
 
@@ -60,8 +63,11 @@ class LDI:
 
 
 def project_layers_folded(ldi: LDI, pose_src2trg: torch.Tensor,
-                          K_trg: Optional[torch.Tensor] = None):
-    """Per-layer target correspondences on folded (B*L, H, W, ·) tensors.
+                          K_trg: Optional[torch.Tensor] = None,
+                          row_offset: int = 0):
+    """Per-layer target correspondences on folded (B*L, H, W, ·) tensors;
+    ``row_offset`` is the global row of the LDI's first row (a height
+    shard's).
 
     Returns (trg_coords (B*L,H,W,2), trg_disp (B*L,H,W,1),
     in_front (B*L,H,W,1)).
@@ -75,12 +81,79 @@ def project_layers_folded(ldi: LDI, pose_src2trg: torch.Tensor,
         return m.repeat_interleave(l, dim=0)
 
     return projection.forward_project(
-        disp_bl, rep(ldi.intrinsics), rep(K_trg), rep(pose_src2trg))
+        disp_bl, rep(ldi.intrinsics), rep(K_trg), rep(pose_src2trg),
+        row_offset=row_offset)
+
+
+def splat_inputs(ldi: LDI, pose_src2trg: torch.Tensor,
+                 K_trg: Optional[torch.Tensor] = None,
+                 zbuffer_scale: float = 50.0, row_offset: int = 0,
+                 global_max: Optional[Callable] = None):
+    """The render's splat inputs, the layers folded into the source rows:
+    payload (B, L*H, W, 4) = [rgb, target disparity], target coordinates
+    (B, L*H, W, 2) and soft z-buffer weights (B, L*H, W, 1), with the
+    in-front mask (B, L*H, W, 1).
+
+    ``row_offset`` and ``global_max`` serve a height shard
+    (``parallel.spatial``): its rows project at their global rows, and
+    ``global_max`` turns the shard's per-image max target disparity into
+    the whole image's.
+    """
+    b, l, h, w, _ = ldi.textures.shape
+    trg_coords, trg_disp, valid = project_layers_folded(
+        ldi, pose_src2trg, K_trg, row_offset)
+    trg_coords = trg_coords.reshape(b, l * h, w, 2)
+    trg_disp = trg_disp.reshape(b, l * h, w, 1)
+    valid = valid.reshape(b, l * h, w, 1)
+
+    # Shift the exp argument by each image's largest valid target
+    # disparity: the factor cancels between accum and wsum, and keeps the
+    # largest weight at exactly 1 so no scale underflows the accumulator.
+    # It carries no gradient (JAX: stop_gradient).
+    neg_inf = torch.full_like(trg_disp, float("-inf"))
+    d_shift = torch.where(valid > 0, trg_disp, neg_inf).amax(
+        dim=(1, 2, 3), keepdim=True).detach()
+    if global_max is not None:
+        d_shift = global_max(d_shift)
+    d_shift = d_shift.clamp_min(0.0)
+    weights = torch.exp(zbuffer_scale * (trg_disp - d_shift)) * valid
+
+    payload = torch.cat(
+        [ldi.textures.float().reshape(b, l * h, w, 3), trg_disp], dim=-1)
+    return payload, trg_coords.contiguous(), weights.contiguous(), valid
+
+
+def composite(accum: torch.Tensor, wsum: torch.Tensor):
+    """The splat's sums -> the render's rgb, disparity and coverage."""
+    # Exact > 0 test: shifted weights of occluded layers can be tiny yet
+    # still meaningful after normalization.
+    out = divide_safe(accum, wsum, eps=0.0)
+    return {"rgb": out[..., :3], "disparity": out[..., 3:4],
+            "coverage": wsum}
+
+
+def window_dropped_fraction(coords: torch.Tensor, valid: torch.Tensor,
+                            out_hw, max_dy: int) -> torch.Tensor:
+    """The share of valid, horizontally in-image splat corners' vertical
+    tent mass that the ``max_dy`` window drops (base row ``row % out_h``);
+    ``lsi_tpu/geometry/ldi.py:_window_dropped_fraction``."""
+    out_h, out_w = out_hw
+    x, y = coords[..., 0], coords[..., 1]
+    y0 = torch.floor(y)
+    fy = snap_fraction(y - y0)
+    base = (torch.arange(coords.shape[1], device=coords.device)
+            % out_h).float()[None, :, None]
+    ky = y0 - base
+    kept = ((1.0 - fy) * ((ky >= -max_dy) & (ky <= max_dy + 1))
+            + fy * ((ky + 1 >= -max_dy) & (ky + 1 <= max_dy + 1)))
+    rel = ((valid[..., 0] > 0) & (x > -1.0) & (x < out_w)).float()
+    return (rel * (1.0 - kept)).sum() / rel.sum().clamp_min(1.0)
 
 
 def render_forward(ldi: LDI, pose_src2trg: torch.Tensor,
                    K_trg: Optional[torch.Tensor] = None, out_hw=None,
-                   zbuffer_scale: float = 50.0):
+                   zbuffer_scale: float = 50.0,
+                   pallas_max_dy: Optional[int] = None):
     """Render an LDI into a novel view by forward splatting.
 
     Args:
@@ -89,44 +162,34 @@ def render_forward(ldi: LDI, pose_src2trg: torch.Tensor,
       K_trg: (B, 3, 3) target intrinsics; defaults to the LDI's.
       out_hw: (Ho, Wo) target size; defaults to the LDI's (H, W).
       zbuffer_scale: soft z-buffer sharpness (weight = exp(scale * d)).
+      pallas_max_dy: None (the default) splats exactly; an int drops every
+        corner more than that many rows from its source row's base row
+        (the TPU kernel's window, JAX's name; ``out_hw`` must be the
+        LDI's). ``parallel.spatial.render_forward_spatial`` equals this
+        render.
     Returns dict with:
       rgb (B, Ho, Wo, 3), disparity (B, Ho, Wo, 1), coverage (B, Ho, Wo, 1)
       (accumulated splat weight, 0 = hole), all float32, and
-      window_dropped_frac, a 0-d tensor that is always 0 (the splat is
-      exact; the key is kept for parity with the JAX package).
+      window_dropped_frac, a 0-d tensor: the share of the splat the window
+      drops (:func:`window_dropped_fraction`), 0 when exact.
     """
-    b, l, h, w, _ = ldi.textures.shape
-    if out_hw is None:
-        out_hw = (h, w)
-
-    trg_coords, trg_disp, valid = project_layers_folded(ldi, pose_src2trg,
-                                                        K_trg)
-    trg_coords = trg_coords.reshape(b, l * h, w, 2)
-    trg_disp = trg_disp.reshape(b, l * h, w, 1)
-    valid = valid.reshape(b, l * h, w, 1)
-
-    # Shift the exp argument by each image's largest valid target
-    # disparity: the factor cancels between accum and wsum, and keeps the
-    # largest weight at exactly 1 so no scale underflows the accumulator.
-    neg_inf = torch.full_like(trg_disp, float("-inf"))
-    d_shift = torch.where(valid > 0, trg_disp, neg_inf).amax(
-        dim=(1, 2, 3), keepdim=True).clamp_min(0.0).detach()
-    weights = torch.exp(zbuffer_scale * (trg_disp - d_shift)) * valid
-
-    payload = torch.cat(
-        [ldi.textures.float().reshape(b, l * h, w, 3), trg_disp], dim=-1)
-    accum, wsum = SplatFn.apply(payload, trg_coords.contiguous(),
-                                weights.contiguous(), tuple(out_hw))
-
-    # Exact > 0 test: shifted weights of occluded layers can be tiny yet
-    # still meaningful after normalization.
-    out = divide_safe(accum, wsum, eps=0.0)
-    return {
-        "rgb": out[..., :3],
-        "disparity": out[..., 3:4],
-        "coverage": wsum,
-        "window_dropped_frac": torch.zeros((), device=wsum.device),
-    }
+    h, w = ldi.height, ldi.width
+    out_hw = (h, w) if out_hw is None else tuple(out_hw)
+    payload, coords, weights, valid = splat_inputs(ldi, pose_src2trg, K_trg,
+                                                   zbuffer_scale)
+    if pallas_max_dy is None:
+        accum, wsum = SplatFn.apply(payload, coords, weights, out_hw)
+        dropped = torch.zeros((), device=wsum.device)
+    else:
+        if out_hw != (h, w):
+            raise ValueError(
+                f"the splat window measures rows from r % H; out_hw "
+                f"{out_hw} must be the LDI's {(h, w)}")
+        accum, wsum = SplatFn.apply(payload, coords, weights, out_hw,
+                                    pallas_max_dy)
+        dropped = window_dropped_fraction(coords.detach(), valid, out_hw,
+                                          pallas_max_dy)
+    return dict(composite(accum, wsum), window_dropped_frac=dropped)
 
 
 def gather_target_per_layer_folded(ldi: LDI, target_image: torch.Tensor,

@@ -117,14 +117,14 @@ def splat_tiling(values_shape, out_hw, aligned16: bool, *,
         smem_bytes=smem_bytes, vec4=c == 4 and aligned16))
 
 
-def window_base_rows(src_h: int, out_h: int, max_dy: int,
-                     fold_h=None, base_offset: int = 0):
-    """The windowed splat's base row of each source row, ``r % fold_h +
-    base_offset`` (``fold_h`` defaults to ``out_h``), as an int64 tensor on
-    the CPU; None for ``max_dy < 0`` (no window). Raises ValueError where
-    the TPU kernel does (``lsi_tpu/kernels/splat_pallas.py:262-271``)."""
+def check_window(src_h: int, out_h: int, max_dy: int, fold_h=None,
+                 base_offset: int = 0):
+    """The kernels' window arguments ``(max_dy, fold_h, base_offset)``:
+    ``fold_h`` defaults to ``out_h``, and no window (``max_dy < 0``) is
+    ``(-1, 1, 0)``. Raises ValueError where the TPU kernel does
+    (``lsi_tpu/kernels/splat_pallas.py:262-271``)."""
     if max_dy < 0:
-        return None
+        return (-1, 1, 0)
     fold_h = out_h if fold_h is None else int(fold_h)
     if fold_h <= 0 or src_h % fold_h:
         raise ValueError(
@@ -135,6 +135,19 @@ def window_base_rows(src_h: int, out_h: int, max_dy: int,
         raise ValueError(
             f"base rows [{base_offset}, {base_offset + fold_h}) must lie "
             f"inside the target height {out_h}")
+    return (int(max_dy), fold_h, int(base_offset))
+
+
+def window_base_rows(src_h: int, out_h: int, max_dy: int,
+                     fold_h=None, base_offset: int = 0):
+    """The windowed splat's base row of each source row, ``r % fold_h +
+    base_offset``, as an int64 tensor on the CPU (the plain version's
+    ``base_rows``); None for ``max_dy < 0`` (no window). Raises as
+    :func:`check_window` does."""
+    max_dy, fold_h, base_offset = check_window(src_h, out_h, max_dy, fold_h,
+                                               base_offset)
+    if max_dy < 0:
+        return None
     return torch.arange(src_h) % fold_h + base_offset
 
 
@@ -178,24 +191,17 @@ def splat(values: torch.Tensor, coords: torch.Tensor, weights: torch.Tensor,
     """
     _check(values, coords, weights, out_hw)
     check_no_grad("splat", values, coords, weights)
-    base = window_base_rows(values.shape[1], int(out_hw[0]), max_dy, fold_h,
-                            base_offset)
+    window = check_window(values.shape[1], int(out_hw[0]), max_dy, fold_h,
+                          base_offset)
     if not check_device(values.device):
-        return splat_bilinear(values, coords, weights, out_hw, snap=snap,
-                              max_dy_window=None if base is None else max_dy,
-                              base_rows=base)
+        return splat_bilinear(
+            values, coords, weights, out_hw, snap=snap,
+            max_dy_window=None if window[0] < 0 else window[0],
+            base_rows=window_base_rows(values.shape[1], int(out_hw[0]),
+                                       *window))
 
     return _launch_splat(values, coords, weights, out_hw, snap,
-                         window=_window(max_dy, fold_h, out_hw, base_offset))
-
-
-def _window(max_dy: int, fold_h, out_hw, base_offset: int):
-    """The kernels' (max_dy, fold_h, base_offset) arguments: (-1, 1, 0)
-    without a window."""
-    if max_dy < 0:
-        return (-1, 1, 0)
-    return (int(max_dy), int(out_hw[0]) if fold_h is None else int(fold_h),
-            int(base_offset))
+                         window=window)
 
 
 def _launch_splat(values, coords, weights, out_hw, snap, tiling=None,
@@ -273,10 +279,10 @@ def splat_vjp(values: torch.Tensor, coords: torch.Tensor,
     check_tensors({"g_accum": g_accum, "g_wsum": g_wsum}, values.device)
     check_no_grad("splat_vjp", values, coords, weights, g_accum, g_wsum)
     needs = tuple(bool(x) for x in needs)
+    window = check_window(hs, out_h, max_dy, fold_h, base_offset)
     if not check_device(values.device):
         return _plain_vjp(values, coords, weights, g_accum, g_wsum, out_hw,
-                          needs, max_dy, fold_h, base_offset)
-    window_base_rows(hs, out_h, max_dy, fold_h, base_offset)  # checks
+                          needs, *window)
 
     outs = [torch.empty_like(t) if need else None
             for t, need in zip((values, coords, weights), needs)]
@@ -284,9 +290,9 @@ def splat_vjp(values: torch.Tensor, coords: torch.Tensor,
     build.launch("splat_bwd", "lsi_splat_vjp", values.device,
                  values.data_ptr(), coords.data_ptr(), weights.data_ptr(),
                  g_accum.data_ptr(), g_wsum.data_ptr(), *ptrs, n, hs, ws, c,
-                 out_h, out_w, *_window(max_dy, fold_h, out_hw, base_offset))
+                 out_h, out_w, *window)
     splat_vjp.launches += 1
-    splat_vjp.window_launches += max_dy >= 0
+    splat_vjp.window_launches += window[0] >= 0
     return tuple(outs)
 
 

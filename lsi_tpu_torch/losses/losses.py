@@ -18,11 +18,12 @@ invalid layer carries the same large error as every other invalid layer,
 and ``valid`` is 1.0 in every layer that lands inside the image.
 
 Every loss is a ratio of sums, or a mean, over the batch. Each sum is
-taken by ``parallel.mesh.batch_sum`` (a mean by ``batch_mean``), which is
-``x.sum()`` in one process and the sum over the data-parallel ranks inside
-``parallel.mesh.reduce_batch``, so that a data-parallel step computes the
-global batch's loss and gradient, as JAX's sharded step does (a mean of
-per-rank ratios would be another number).
+taken by ``parallel.reduce.batch_sum`` (a mean by ``batch_mean``) over
+the ``data_group`` argument: ``x.sum()`` for None (one process, the
+default) and the sum over the data-parallel ranks for their group, so
+that a data-parallel step computes the global batch's loss and gradient,
+as JAX's sharded step does (a mean of per-rank ratios would be another
+number).
 
 The refuted knobs ``photo_layer0_weight``, ``consistency_ema_teacher``
 and ``consistency_stop_step`` are not ported (ROADMAP "Do not port").
@@ -43,7 +44,7 @@ from lsi_tpu_torch.geometry.ldi import (LDI, project_layers_folded,
 from lsi_tpu_torch.kernels.gather_cuda import GatherFn
 from lsi_tpu_torch.models.mpi import MPI, mpi_source_disparity, render_mpi
 from lsi_tpu_torch.geometry.transforms import invert_pose
-from lsi_tpu_torch.parallel.mesh import batch_mean, batch_sum
+from lsi_tpu_torch.parallel.reduce import batch_mean, batch_sum
 from lsi_tpu_torch.utils.helpers import divide_safe
 
 # Error given to samples that fell outside the target view, so the min over
@@ -127,7 +128,7 @@ def view_synthesis_inverse_warp(ldi: LDI, target_image: torch.Tensor,
                                 min_over_layers: bool = True,
                                 candidate_radius: int = 0,
                                 layer0_margin: float = 0.0,
-                                return_diag: bool = False):
+                                return_diag: bool = False, data_group=None):
     """Gather-direction photometric loss, per-pixel min over layers.
 
     For each source pixel and layer, samples the target image at the
@@ -137,7 +138,8 @@ def view_synthesis_inverse_warp(ldi: LDI, target_image: torch.Tensor,
     the error is also the min over the (2r+1)^2 integer-offset samples
     around each projection (it forgives sub-pixel correspondence error).
     With ``return_diag``, returns ``(loss, {})``: the port's gather has no
-    window to diagnose.
+    window to diagnose. ``data_group``: the data-parallel ranks whose
+    batches make the global batch (module docstring).
     """
     b, l, h, w, _ = ldi.textures.shape
     tex = ldi.textures.float().reshape(b * l, h, w, 3)
@@ -160,7 +162,8 @@ def view_synthesis_inverse_warp(ldi: LDI, target_image: torch.Tensor,
             valid.sum(dim=1))
     any_valid = valid.amax(dim=1)
     per_pixel = torch.where(any_valid > 0.5, per_pixel, 0.0)
-    loss = divide_safe(batch_sum(per_pixel), batch_sum(any_valid))
+    loss = divide_safe(batch_sum(per_pixel, data_group),
+                       batch_sum(any_valid, data_group))
     return (loss, {}) if return_diag else loss
 
 
@@ -169,7 +172,7 @@ def view_synthesis_splat(ldi: LDI, target_image: torch.Tensor,
                          render_cfg: RenderConfig,
                          K_trg: Optional[torch.Tensor] = None,
                          ssim_weight: float = 0.0,
-                         return_diag: bool = False):
+                         return_diag: bool = False, data_group=None):
     """Scatter-direction photometric loss on the soft-z composite render,
     masked by splat coverage. With ``ssim_weight`` alpha > 0 it is the
     monodepth mix alpha * (1 - SSIM) / 2 + (1 - alpha) * Charbonnier, the
@@ -181,9 +184,11 @@ def view_synthesis_splat(ldi: LDI, target_image: torch.Tensor,
     covered = (out["coverage"] > 0).float()
     trg32 = target_image.float()
     err = _charbonnier(out["rgb"] - trg32).mean(-1, keepdim=True)
-    photo = divide_safe(batch_sum(err * covered), batch_sum(covered))
+    photo = divide_safe(batch_sum(err * covered, data_group),
+                        batch_sum(covered, data_group))
     if ssim_weight > 0.0:
-        structural = (1.0 - ssim(out["rgb"], trg32, mask=covered)) / 2.0
+        structural = (1.0 - ssim(out["rgb"], trg32, mask=covered,
+                                 data_group=data_group)) / 2.0
         photo = ssim_weight * structural + (1.0 - ssim_weight) * photo
     if return_diag:
         return photo, {"window_dropped_frac": out["window_dropped_frac"]}
@@ -191,7 +196,8 @@ def view_synthesis_splat(ldi: LDI, target_image: torch.Tensor,
 
 
 def disparity_smoothness(ldi: LDI, edge_aware: bool = True,
-                         edge_gate_deep: bool = True) -> torch.Tensor:
+                         edge_gate_deep: bool = True,
+                         data_group=None) -> torch.Tensor:
     """First-order disparity smoothness, optionally edge-aware (weights
     exp(-10 |grad I|) of the layer-0 texture). With
     ``edge_gate_deep=False`` the edge gate applies to layer 0 only."""
@@ -211,7 +217,7 @@ def disparity_smoothness(ldi: LDI, edge_aware: bool = True,
             wy = torch.where(layer_is_0, wy, 1.0)
         dx = dx * wx
         dy = dy * wy
-    return batch_mean(dx) + batch_mean(dy)
+    return batch_mean(dx, data_group) + batch_mean(dy, data_group)
 
 
 def depth_consistency(ldi_src: LDI, ldi_trg: LDI,
@@ -221,7 +227,8 @@ def depth_consistency(ldi_src: LDI, ldi_trg: LDI,
                       stop_target: bool = False,
                       disocc_only: bool = False,
                       visible_only: bool = False,
-                      deep_only: bool = False) -> torch.Tensor:
+                      deep_only: bool = False,
+                      data_group=None) -> torch.Tensor:
     """Cross-view depth consistency, one direction: splat the source LDI's
     disparity into the target view and penalise its disagreement with the
     target prediction's layer-0 disparity where the render has weight.
@@ -261,15 +268,17 @@ def depth_consistency(ldi_src: LDI, ldi_trg: LDI,
     if stop_target:
         target = target.detach()
     err = _charbonnier(rendered_disp - target)
-    return divide_safe(batch_sum(err * mask), batch_sum(mask))
+    return divide_safe(batch_sum(err * mask, data_group),
+                       batch_sum(mask, data_group))
 
 
 def depth_supervision(ldi: LDI, gt_disparity: torch.Tensor,
-                      valid: torch.Tensor) -> torch.Tensor:
+                      valid: torch.Tensor, data_group=None) -> torch.Tensor:
     """Charbonnier on layer-0 disparity where ground truth exists."""
     pred = ldi.disparities[:, 0]  # (B, H, W, 1)
     err = _charbonnier(pred - gt_disparity) * valid
-    return divide_safe(batch_sum(err), batch_sum(valid))
+    return divide_safe(batch_sum(err, data_group),
+                       batch_sum(valid, data_group))
 
 
 def total_loss(ldi: LDI, target_image: torch.Tensor,
@@ -277,12 +286,13 @@ def total_loss(ldi: LDI, target_image: torch.Tensor,
                render_cfg: RenderConfig,
                K_trg: Optional[torch.Tensor] = None,
                gt_disparity: Optional[torch.Tensor] = None,
-               gt_valid: Optional[torch.Tensor] = None
-               ) -> Dict[str, torch.Tensor]:
+               gt_valid: Optional[torch.Tensor] = None,
+               data_group=None) -> Dict[str, torch.Tensor]:
     """Assemble the configured loss: ``{"total", parts..., diagnostics}``.
 
     Diagnostics (``window_dropped_frac``) ride along and are NOT summed
-    into ``total``.
+    into ``total``. With a ``data_group`` the parts are the global batch's
+    (module docstring).
     """
     check_loss_config(loss_cfg)
     parts = {}
@@ -292,26 +302,29 @@ def total_loss(ldi: LDI, target_image: torch.Tensor,
             ldi, target_image, pose_src2trg, K_trg,
             min_over_layers=loss_cfg.min_over_layers,
             candidate_radius=loss_cfg.candidate_radius,
-            layer0_margin=loss_cfg.min_layer0_margin, return_diag=True)
+            layer0_margin=loss_cfg.min_layer0_margin, return_diag=True,
+            data_group=data_group)
         parts["photo_inverse_warp"] = loss_cfg.inverse_warp_weight * inv_loss
         diags.update(inv_diag)
     if loss_cfg.photo_mode in ("splat", "both"):
         splat_loss, diag = view_synthesis_splat(
             ldi, target_image, pose_src2trg, render_cfg, K_trg,
-            ssim_weight=loss_cfg.ssim_weight, return_diag=True)
+            ssim_weight=loss_cfg.ssim_weight, return_diag=True,
+            data_group=data_group)
         parts["photo_splat"] = loss_cfg.splat_weight * splat_loss
         diags.update(diag)
     if loss_cfg.smoothness_weight > 0:
         parts["smoothness"] = (
             loss_cfg.smoothness_weight
             * disparity_smoothness(ldi, loss_cfg.edge_aware_smoothness,
-                                   loss_cfg.smoothness_edge_gate_deep))
+                                   loss_cfg.smoothness_edge_gate_deep,
+                                   data_group))
     if loss_cfg.depth_supervision_weight > 0 and gt_disparity is not None:
         if gt_valid is None:
             gt_valid = torch.ones_like(gt_disparity)
         parts["depth_supervision"] = (
             loss_cfg.depth_supervision_weight
-            * depth_supervision(ldi, gt_disparity, gt_valid))
+            * depth_supervision(ldi, gt_disparity, gt_valid, data_group))
     parts["total"] = sum(parts.values())
     parts.update(diags)
     return parts
@@ -324,8 +337,8 @@ def total_loss_bidirectional(ldi_src: LDI, ldi_trg: LDI,
                              loss_cfg: LossConfig,
                              render_cfg: RenderConfig,
                              gt_disparity: Optional[torch.Tensor] = None,
-                             gt_valid: Optional[torch.Tensor] = None
-                             ) -> Dict[str, torch.Tensor]:
+                             gt_valid: Optional[torch.Tensor] = None,
+                             data_group=None) -> Dict[str, torch.Tensor]:
     """The two-prediction loss (an LDI predicted from each view):
 
     * :func:`total_loss` of the source prediction against the target;
@@ -337,16 +350,17 @@ def total_loss_bidirectional(ldi_src: LDI, ldi_trg: LDI,
     * with ``consistency_anchor_weight``, the ``visible_only`` consistency
       in both directions (``depth_anchor``).
 
-    Diagnostics ride along un-summed, as in :func:`total_loss`.
+    Diagnostics ride along un-summed, as in :func:`total_loss`, and
+    ``data_group`` is :func:`total_loss`'s.
     """
     parts = total_loss(ldi_src, trg_image, pose_src2trg, loss_cfg,
                        render_cfg, gt_disparity=gt_disparity,
-                       gt_valid=gt_valid)
+                       gt_valid=gt_valid, data_group=data_group)
     total = parts.pop("total")
     pose_trg2src = invert_pose(pose_src2trg)
     if loss_cfg.symmetric:
         rev = total_loss(ldi_trg, src_image, pose_trg2src, loss_cfg,
-                         render_cfg)
+                         render_cfg, data_group=data_group)
         total = total + rev.pop("total")
         for k, v in rev.items():
             parts[("window_dropped_frac_rev" if k == "window_dropped_frac"
@@ -362,9 +376,10 @@ def total_loss_bidirectional(ldi_src: LDI, ldi_trg: LDI,
                       dict(visible_only=True)))
     for name, weight, kw in terms:
         both = (depth_consistency(ldi_src, ldi_trg, pose_src2trg,
-                                  render_cfg, **kw)
+                                  render_cfg, data_group=data_group, **kw)
                 + depth_consistency(ldi_trg, ldi_src, pose_trg2src,
-                                    render_cfg, **kw))
+                                    render_cfg, data_group=data_group,
+                                    **kw))
         parts[name] = weight * both
         total = total + parts[name]
     parts["total"] = total
@@ -372,7 +387,7 @@ def total_loss_bidirectional(ldi_src: LDI, ldi_trg: LDI,
 
 
 def mpi_smoothness(disp: torch.Tensor, image: torch.Tensor,
-                   edge_aware: bool = True) -> torch.Tensor:
+                   edge_aware: bool = True, data_group=None) -> torch.Tensor:
     """First-order smoothness of the MPI's expected source disparity
     (B, H, W, 1), edge-aware against the input image (weights
     exp(-10 |grad I|), as the LDI term)."""
@@ -385,7 +400,7 @@ def mpi_smoothness(disp: torch.Tensor, image: torch.Tensor,
         gy = _abs(img[:, 1:, :] - img[:, :-1, :]).mean(-1)
         dx = dx * torch.exp(-10.0 * gx)
         dy = dy * torch.exp(-10.0 * gy)
-    return batch_mean(dx) + batch_mean(dy)
+    return batch_mean(dx, data_group) + batch_mean(dy, data_group)
 
 
 def mpi_total_loss(mpi: MPI, src_image: torch.Tensor,
@@ -394,8 +409,8 @@ def mpi_total_loss(mpi: MPI, src_image: torch.Tensor,
                    K_trg: Optional[torch.Tensor] = None,
                    gt_disparity: Optional[torch.Tensor] = None,
                    gt_valid: Optional[torch.Tensor] = None,
-                   alpha_coverage_weight: float = 1.0
-                   ) -> Dict[str, torch.Tensor]:
+                   alpha_coverage_weight: float = 1.0,
+                   data_group=None) -> Dict[str, torch.Tensor]:
     """The MPI baseline's training loss: ``{"total", parts...}``.
 
     * ``photo_mpi``: Charbonnier of the homography-warped over-composite
@@ -406,26 +421,30 @@ def mpi_total_loss(mpi: MPI, src_image: torch.Tensor,
       disparity (``smoothness_weight`` > 0);
     * ``depth_supervision``: Charbonnier of that disparity against ground
       truth, where the batch has it (``depth_supervision_weight`` > 0).
+    With a ``data_group`` the parts are the global batch's (module
+    docstring).
     """
     out = render_mpi(mpi, pose_src2trg, K_trg=K_trg,
                      out_hw=tuple(target_image.shape[1:3]))
     err = _charbonnier(out["rgb"] - target_image.float()).mean(
         -1, keepdim=True)
     parts = {
-        "photo_mpi": loss_cfg.splat_weight * batch_mean(err),
+        "photo_mpi": loss_cfg.splat_weight * batch_mean(err, data_group),
         "alpha_coverage": alpha_coverage_weight * batch_mean(
-            (1.0 - out["alpha"]) ** 2),
+            (1.0 - out["alpha"]) ** 2, data_group),
     }
     src_disp = mpi_source_disparity(mpi)
     if loss_cfg.smoothness_weight > 0:
         parts["smoothness"] = loss_cfg.smoothness_weight * mpi_smoothness(
-            src_disp, src_image, loss_cfg.edge_aware_smoothness)
+            src_disp, src_image, loss_cfg.edge_aware_smoothness,
+            data_group)
     if loss_cfg.depth_supervision_weight > 0 and gt_disparity is not None:
         if gt_valid is None:
             gt_valid = torch.ones_like(gt_disparity)
         err_d = _charbonnier(src_disp - gt_disparity) * gt_valid
         parts["depth_supervision"] = (
             loss_cfg.depth_supervision_weight
-            * divide_safe(batch_sum(err_d), batch_sum(gt_valid)))
+            * divide_safe(batch_sum(err_d, data_group),
+                          batch_sum(gt_valid, data_group)))
     parts["total"] = sum(parts.values())
     return parts

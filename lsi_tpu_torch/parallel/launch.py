@@ -134,7 +134,8 @@ def spatial_render(plan, arrays, pose, zbuffer_scale, max_dy, target=None):
     ``mean((rgb - target)^2)`` over the global image and batch and its
     gradient with respect to this rank's disparity shard."""
     from lsi_tpu_torch.geometry.ldi import LDI
-    from lsi_tpu_torch.parallel.mesh import batch_slice, reduce_sum
+    from lsi_tpu_torch.parallel.mesh import batch_slice
+    from lsi_tpu_torch.parallel.reduce import reduce_sum
     from lsi_tpu_torch.parallel.spatial import (render_forward_spatial,
                                                 shard_ldi)
     dev = plan.device
@@ -166,34 +167,72 @@ def spatial_render(plan, arrays, pose, zbuffer_scale, max_dy, target=None):
     return res
 
 
-def train_steps(plan, cfg, params, batches, collect_grads=True, tf32=True):
+def per_share_forward(net: torch.nn.Module, batch_size: int,
+                      shares: int) -> None:
+    """Make ``net`` run each of ``shares`` equal parts of a batch of
+    ``batch_size`` examples on its own, as that many data-parallel ranks
+    do, and reassemble the whole batch's prediction: one process with the
+    ranks' convolution shapes and no reduction. Takes the single forward
+    and the paired one of ``trainer.apply_model_pair`` ([src; trg]
+    stacked: each share holds its examples of both views)."""
+    forward = net.forward
+    per = batch_size // shares
+
+    def split(images, intrinsics):
+        views = images.shape[0] // batch_size
+        idx = [torch.cat([torch.arange(v * batch_size + i * per,
+                                       v * batch_size + (i + 1) * per)
+                          for v in range(views)]) for i in range(shares)]
+        outs = [forward(images[ix], intrinsics[ix]) for ix in idx]
+        order = torch.argsort(torch.cat(idx))
+
+        def cat(field):
+            return torch.cat([getattr(o, field) for o in outs])[order]
+        return dataclasses.replace(outs[0], textures=cat("textures"),
+                                   disparities=cat("disparities"),
+                                   intrinsics=cat("intrinsics"))
+
+    net.forward = split
+
+
+def train_steps(plan, cfg, params, batches, collect_grads=True, tf32=True,
+                deterministic=False, net_shares=1):
     """``len(batches)`` steps of ``make_train_step(cfg, plan=plan)`` from
     ``params`` (a state dict as numpy), each global batch (a dict of
     numpy arrays) cut to this rank's share; ``tf32=False`` turns TF32 off
-    on the card. Returns the metrics, the parameters and the kernel
-    launches of every step and the step-1 gradients (summed over the
-    ranks), as numpy."""
+    on the card, ``deterministic`` makes cuDNN pick deterministic
+    algorithms, and ``net_shares`` runs the network on that many parts of
+    the batch (:func:`per_share_forward`). Returns the metrics, the
+    parameters and the kernel launches of every step and the step-1
+    gradients, this rank's part and the sum over the ranks, as numpy."""
     from lsi_tpu_torch.data.pipeline import Batch
-    from lsi_tpu_torch.parallel.mesh import (all_reduce_grads, batch_slice,
-                                             reduce_batch)
+    from lsi_tpu_torch.parallel.mesh import all_reduce_grads, batch_slice
     from lsi_tpu_torch.train import trainer
 
     dev = plan.device
     if not tf32:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     state = trainer.create_state(cfg, device=dev)
     state.net.load_state_dict({k: torch.from_numpy(v)
                                for k, v in params.items()})
     step = trainer.make_train_step(cfg, plan=plan)
-    history, params_after, launches, grads = [], [], [], None
+    history, params_after, launches = [], [], []
+    grads = local = None
     for i, b in enumerate(batches):
         bs = batch_slice(len(next(iter(b.values()))), plan)
         batch = Batch(**{k: torch.from_numpy(v[bs]).to(dev)
                          for k, v in b.items()})
+        if i == 0 and net_shares > 1:
+            per_share_forward(state.net, batch.src_image.shape[0],
+                              net_shares)
         if i == 0 and collect_grads:
-            with reduce_batch(plan):
-                _, g = trainer.loss_and_grads(state, batch, cfg)
+            _, g = trainer.loss_and_grads(state, batch, cfg,
+                                          data_group=plan.batch_group)
+            local = {k: _np(v) for k, v in g.items()}
             grads = {k: _np(v) for k, v in all_reduce_grads(plan, g).items()}
         before = launch_counts()
         state, metrics = step(state, batch)
@@ -201,8 +240,8 @@ def train_steps(plan, cfg, params, batches, collect_grads=True, tf32=True):
         launches.append(_since(before))
         params_after.append({k: _np(v)
                              for k, v in state.net.state_dict().items()})
-    return {"metrics": history, "grads": grads, "params": params_after,
-            "launches": launches}
+    return {"metrics": history, "grads": grads, "local_grads": local,
+            "params": params_after, "launches": launches}
 
 
 def spatial_renders(plan, cases):

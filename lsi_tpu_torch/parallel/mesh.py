@@ -18,16 +18,15 @@ transfers of CUDA tensors are staged through pinned host memory
 (:func:`send_recv`), since gloo's send and receive read host memory only.
 
 Data parallelism computes the GLOBAL batch's loss and gradient, as JAX's
-sharded step does: inside :func:`reduce_batch` the losses' batch sums
-(:func:`batch_sum`, :func:`batch_mean`) are all-reduced over the data
-group in the forward, with an identity backward, so each rank
-back-propagates its own part of the global loss and
-:func:`all_reduce_grads` sums those parts into the global gradient.
+sharded step does: the losses take their batch sums over
+:attr:`ProcessPlan.batch_group` (``parallel.reduce``: all-reduced in the
+forward, the identity in the backward), so each rank back-propagates its
+own part of the global loss, and :func:`all_reduce_grads` sums those
+parts into the global gradient.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import datetime
 import os
@@ -37,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from lsi_tpu_torch.api import resolve_device
+from lsi_tpu_torch.parallel.reduce import all_reduce
 
 DATA_AXIS = "data"
 SPACE_AXIS = "space"
@@ -77,6 +77,12 @@ class ProcessPlan:
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def batch_group(self):
+        """The group the losses' batch sums reduce over: the data group,
+        None with one rank on the data axis (no collective)."""
+        return self.data_group if self.data > 1 else None
 
 
 def make_process_plan(device="cuda", backend: Optional[str] = None,
@@ -167,71 +173,6 @@ def batch_slice(global_batch: int, plan: ProcessPlan) -> slice:
 
 
 # ----------------------------------------------------------- collectives
-
-def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``t`` reduced in place over ``group`` (a no-op without one)."""
-    if group is not None:
-        dist.all_reduce(t, op=op, group=group)
-    return t
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """The sum over ``group`` in the forward; the identity in the backward.
-
-    Every rank goes on from the same reduced value, so the gradient of the
-    global loss with respect to one rank's addend is the cotangent itself:
-    summing the ranks' parameter gradients afterwards gives the gradient
-    of the global loss (:func:`all_reduce_grads`)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        return all_reduce(x.detach().clone(), group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """Differentiable sum of ``x`` over ``group`` (identity backward)."""
-    if group is None:
-        return x
-    return _AllReduceSum.apply(x, group)
-
-
-_BATCH_PLAN: Optional[ProcessPlan] = None
-
-
-@contextlib.contextmanager
-def reduce_batch(plan: Optional[ProcessPlan]):
-    """Inside, :func:`batch_sum` and :func:`batch_mean` reduce over
-    ``plan``'s data group (nothing happens for one rank on the data
-    axis)."""
-    global _BATCH_PLAN
-    old = _BATCH_PLAN
-    _BATCH_PLAN = plan if plan is not None and plan.data > 1 else None
-    try:
-        yield
-    finally:
-        _BATCH_PLAN = old
-
-
-def batch_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x.sum()`` over the global batch: summed over the data group
-    inside :func:`reduce_batch`, else over this process's tensor."""
-    s = x.sum()
-    if _BATCH_PLAN is None:
-        return s
-    return reduce_sum(s, _BATCH_PLAN.data_group)
-
-
-def batch_mean(x: torch.Tensor) -> torch.Tensor:
-    """``x.mean()`` over the global batch (every rank holds the same
-    number of examples)."""
-    if _BATCH_PLAN is None:
-        return x.mean()
-    return batch_sum(x) / (x.numel() * _BATCH_PLAN.data)
-
 
 def _flat(tensors) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in tensors])

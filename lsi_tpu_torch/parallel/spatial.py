@@ -14,7 +14,9 @@ the window bounds every source pixel's reach to
 band lands in the halo. The halo strips go to the neighbours, which add
 them to their own rows (the edge strips, outside the image, are dropped),
 and only then is the composite normalised. The result equals the
-single-device render with the same window (:func:`render_forward_windowed`).
+single-device render with the same window
+(``geometry.ldi.render_forward(..., pallas_max_dy=...)``), whose splat
+inputs (``geometry.ldi.splat_inputs``) it builds for its rows.
 
 The exchange is differentiable (:class:`HaloExchange`: its backward sends
 the cotangent strips back, as ``ppermute`` transposes), so the LDI
@@ -29,12 +31,10 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from lsi_tpu_torch.geometry import projection
-from lsi_tpu_torch.geometry.ldi import LDI
+from lsi_tpu_torch.geometry.ldi import LDI, composite, splat_inputs
 from lsi_tpu_torch.kernels.splat_cuda import SplatFn
-from lsi_tpu_torch.parallel.mesh import (ProcessPlan, all_reduce,
-                                         batch_slice, send_recv)
-from lsi_tpu_torch.utils.helpers import divide_safe
+from lsi_tpu_torch.parallel.mesh import ProcessPlan, batch_slice, send_recv
+from lsi_tpu_torch.parallel.reduce import all_reduce
 
 
 def shard_ldi(ldi: LDI, plan: ProcessPlan) -> LDI:
@@ -51,61 +51,6 @@ def shard_ldi(ldi: LDI, plan: ProcessPlan) -> LDI:
     return LDI(textures=ldi.textures[bs, :, rows],
                disparities=ldi.disparities[bs, :, rows],
                intrinsics=ldi.intrinsics[bs])
-
-
-def splat_inputs(ldi: LDI, pose_src2trg: torch.Tensor,
-                 K_trg: Optional[torch.Tensor], zbuffer_scale: float,
-                 row0: int, global_max: Callable = lambda t: t):
-    """The render's splat inputs for LDI rows starting at global row
-    ``row0``, as ``geometry.ldi.render_forward`` builds them: payload
-    (B, L*h, W, 4) = [rgb, target disparity], target coordinates in global
-    pixels (B, L*h, W, 2) and soft z-buffer weights (B, L*h, W, 1).
-    ``global_max`` turns the per-image max target disparity of these rows
-    into the image's (the identity for a whole image)."""
-    b, l, h, w, _ = ldi.textures.shape
-    if K_trg is None:
-        K_trg = ldi.intrinsics
-
-    def rep(m):
-        return m.repeat_interleave(l, dim=0)
-
-    tc, td, valid = projection.forward_project(
-        ldi.disparities.reshape(b * l, h, w, 1), rep(ldi.intrinsics),
-        rep(K_trg), rep(pose_src2trg), row_offset=row0)
-    tc = tc.reshape(b, l * h, w, 2)
-    td = td.reshape(b, l * h, w, 1)
-    valid = valid.reshape(b, l * h, w, 1)
-    local_max = torch.where(valid > 0, td, torch.full_like(td, float("-inf"))
-                            ).amax(dim=(1, 2, 3), keepdim=True)
-    # The shift cancels in the composite; it only pins the weights' scale,
-    # so it carries no gradient (JAX: stop_gradient of the gathered max).
-    d_shift = global_max(local_max.detach()).clamp_min(0.0)
-    weights = torch.exp(zbuffer_scale * (td - d_shift)) * valid
-    payload = torch.cat([ldi.textures.float().reshape(b, l * h, w, 3), td],
-                        dim=-1)
-    return payload, tc, weights
-
-
-def _composite(out: torch.Tensor):
-    """[accum (4), wsum (1)] -> the render's rgb, disparity, coverage."""
-    composite = divide_safe(out[..., :4], out[..., 4:], eps=0.0)
-    return {"rgb": composite[..., :3], "disparity": composite[..., 3:4],
-            "coverage": out[..., 4:]}
-
-
-def render_forward_windowed(ldi: LDI, pose_src2trg: torch.Tensor,
-                            K_trg: Optional[torch.Tensor] = None,
-                            zbuffer_scale: float = 50.0,
-                            pallas_max_dy: int = 2):
-    """The single-device render with the splat's vertical window (base row
-    ``row % H``): what :func:`render_forward_spatial` equals. Returns rgb,
-    disparity and coverage as ``geometry.ldi.render_forward`` does."""
-    h, w = ldi.height, ldi.width
-    payload, tc, weights = splat_inputs(ldi, pose_src2trg, K_trg,
-                                        zbuffer_scale, row0=0)
-    accum, wsum = SplatFn.apply(payload, tc.contiguous(),
-                                weights.contiguous(), (h, w), pallas_max_dy)
-    return _composite(torch.cat([accum, wsum], dim=-1))
 
 
 class HaloExchange(torch.autograd.Function):
@@ -153,7 +98,8 @@ def render_forward_spatial(ldi: LDI, pose_src2trg: torch.Tensor,
                            K_trg: Optional[torch.Tensor] = None,
                            zbuffer_scale: float = 50.0,
                            pallas_max_dy: int = 2):
-    """Height-sharded :func:`render_forward_windowed` with halo exchange.
+    """Height-sharded ``geometry.ldi.render_forward(...,
+    pallas_max_dy=pallas_max_dy)`` with halo exchange.
 
     Args:
       ldi: THIS rank's shard (:func:`shard_ldi`): (B_local, L, hd, W, ·)
@@ -190,13 +136,13 @@ def render_forward_spatial(ldi: LDI, pose_src2trg: torch.Tensor,
     mid = (mid + F.pad(from_prev, (0, 0, 0, 0, 0, hd - pad))
            + F.pad(from_next, (0, 0, 0, 0, hd - pad, 0)))
     # Normalise AFTER the exchange, as the single-device render does.
-    return _composite(mid)
+    return composite(mid[..., :4], mid[..., 4:])
 
 
 def shard_splat_args(ldi: LDI, pose_src2trg: torch.Tensor,
                      K_trg: Optional[torch.Tensor], zbuffer_scale: float,
                      row0: int, max_dy: int,
-                     global_max: Callable = lambda t: t):
+                     global_max: Optional[Callable] = None):
     """The windowed splat of one shard (rows ``row0 .. row0 + hd`` of the
     image) into its local target: ``(payload, coords, weights, out_hw,
     (max_dy, hd, offset))``, the arguments of ``SplatFn`` in
@@ -215,9 +161,10 @@ def shard_splat_args(ldi: LDI, pose_src2trg: torch.Tensor,
     hd = ldi.height
     pad = max_dy + 2
     offset = pad if row0 else 0
-    payload, tc, weights = splat_inputs(ldi, pose_src2trg, K_trg,
-                                        zbuffer_scale, row0, global_max)
+    payload, tc, weights, _ = splat_inputs(ldi, pose_src2trg, K_trg,
+                                           zbuffer_scale, row0, global_max)
     if row0 - offset:
-        tc = tc - torch.tensor([0.0, float(row0 - offset)], device=tc.device)
-    return (payload, tc.contiguous(), weights.contiguous(),
-            (hd + 2 * pad, ldi.width), (max_dy, hd, offset))
+        tc = (tc - torch.tensor([0.0, float(row0 - offset)],
+                                device=tc.device)).contiguous()
+    return (payload, tc, weights, (hd + 2 * pad, ldi.width),
+            (max_dy, hd, offset))

@@ -28,8 +28,9 @@ state in place (parameters, moments, counters) and returns it.
 
 Data parallelism (JAX: the step sharded over a ``MeshPlan``) takes a
 ``parallel.mesh.ProcessPlan``: each rank holds its share of the global
-batch, the losses' batch sums are all-reduced in the forward
-(``reduce_batch``), and the ranks' gradients are summed before the
+batch, the losses take their batch sums over the plan's data group
+(``ProcessPlan.batch_group``, passed to them as ``data_group``), and the
+ranks' gradients are summed before the
 optimizer, so the clip, the finiteness test and the schedule see the
 global batch's gradient and every rank applies the same update.
 
@@ -67,7 +68,7 @@ from lsi_tpu_torch.models.ldi_predictor import (freeze_layer0_grad_mask,
                                                 splice_layer0_params)
 from lsi_tpu_torch.parallel.mesh import (ProcessPlan, all_reduce_grads,
                                          assert_divisible, batch_slice,
-                                         broadcast_params, reduce_batch)
+                                         broadcast_params)
 from lsi_tpu_torch.train.checkpoint import (CheckpointManager,
                                             export_params_npz,
                                             import_params_npz,
@@ -241,7 +242,7 @@ def apply_model_pair(net: torch.nn.Module, image_a: torch.Tensor,
 
 
 def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
-                   stage_layer0: bool = False):
+                   stage_layer0: bool = False, data_group=None):
     """The loss parts of one batch and the gradient of ``total`` with
     respect to every parameter (zeros where it does not reach one):
     ``(parts, {name: grad})``. The two halves are profiler ranges
@@ -252,7 +253,10 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
     two-prediction config (``symmetric``, ``consistency_weight``,
     ``consistency_anchor_weight``) predicts from both views in one forward
     and takes ``total_loss_bidirectional``, except in the
-    ``stage_layer0`` step, which keeps the single prediction."""
+    ``stage_layer0`` step, which keeps the single prediction. With a
+    ``data_group`` (``ProcessPlan.batch_group``) the parts are the global
+    batch's and the gradients this rank's share of the global gradient
+    (``parallel.reduce``)."""
     params = state.params()
     lc = cfg.loss
     mpi = cfg.model.family == "mpi"
@@ -266,14 +270,15 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
             parts = mpi_total_loss(
                 pred, batch.src_image, batch.trg_image, batch.pose_src2trg,
                 cfg.loss, gt_disparity=batch.gt_disparity,
-                gt_valid=batch.gt_valid)
+                gt_valid=batch.gt_valid, data_group=data_group)
         elif two_predictions and not stage_layer0:
             pred, pred_trg = apply_model_pair(
                 state.net, batch.src_image, batch.trg_image, batch.intrinsics)
             parts = total_loss_bidirectional(
                 pred, pred_trg, batch.src_image, batch.trg_image,
                 batch.pose_src2trg, cfg.loss, cfg.render,
-                gt_disparity=batch.gt_disparity, gt_valid=batch.gt_valid)
+                gt_disparity=batch.gt_disparity, gt_valid=batch.gt_valid,
+                data_group=data_group)
         else:
             pred = state.net(batch.src_image, batch.intrinsics)
             if stage_layer0:
@@ -281,7 +286,8 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
             parts = total_loss(pred, batch.trg_image, batch.pose_src2trg,
                                cfg.loss, cfg.render,
                                gt_disparity=batch.gt_disparity,
-                               gt_valid=batch.gt_valid)
+                               gt_valid=batch.gt_valid,
+                               data_group=data_group)
     with record_function("train_step/backward"):
         grads = torch.autograd.grad(parts["total"], list(params.values()),
                                     allow_unused=True)
@@ -312,10 +318,11 @@ def make_train_step(cfg: Config, stage_layer0: bool = False,
     """
     check_train_config(cfg)
     opt = Optimizer(cfg)
+    data_group = None if plan is None else plan.batch_group
 
     def step_fn(state: TrainState, batch: Batch):
-        with reduce_batch(plan):
-            parts, grads = loss_and_grads(state, batch, cfg, stage_layer0)
+        parts, grads = loss_and_grads(state, batch, cfg, stage_layer0,
+                                      data_group)
         with record_function("train_step/all_reduce"):
             grads = all_reduce_grads(plan, grads)
         with record_function("train_step/optimizer"):

@@ -239,7 +239,7 @@ def test_port_never_imports_jax():
                                  "--num_batches", "1", "--set", *sets])
             assert math.isfinite(results["abs_rel"])
         import numpy as np
-        from lsi_tpu_torch.parallel import launch, mesh, spatial
+        from lsi_tpu_torch.parallel import launch, mesh, reduce, spatial
         with tempfile.TemporaryDirectory() as d:
             arrays = {"textures": np.random.rand(1, 2, 16, 32, 3),
                       "disparities": np.full((1, 2, 16, 32, 1), 0.2),

@@ -175,9 +175,9 @@ def runs(tmp_path_factory):
         one = {name: one_process(cfg, params, batches)
                for name, (cfg, params, batches, _) in inputs.items()}
         ranks = {name: f.result() for name, f in ranks.items()}
-    return {name: dict(cfg=cfg, start=params, jax=jax_res,
+    return {name: dict(cfg=cfg, start=params, batches=batches, jax=jax_res,
                        ranks=ranks[name], one=one[name])
-            for name, (cfg, params, _, jax_res) in inputs.items()}
+            for name, (cfg, params, batches, jax_res) in inputs.items()}
 
 
 def check_metrics(got, want, norm_rtol=LOSS_RTOL):
@@ -229,6 +229,24 @@ def test_two_ranks_equal_jax_two_devices(runs, name):
             state_dict_from_jax(r["jax"]["params"], r["cfg"].model).items()}
     check_params(r["ranks"][0]["params"][-1], want, r["start"],
                  lr_sum(r["cfg"]))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_per_share_forward_and_local_gradients(runs, name):
+    """One process whose network runs on the ranks' shares
+    (``launch.per_share_forward``, the single and the paired forward)
+    takes the one-process step; the ranks' own gradients sum to the
+    global one."""
+    r = runs[name]
+    shares = launch.train_steps(ProcessPlan(), r["cfg"], r["start"],
+                                r["batches"][:1], net_shares=2)
+    check_metrics(shares["metrics"], r["one"]["metrics"][:1])
+    for k, g in r["one"]["grads"].items():
+        np.testing.assert_allclose(shares["grads"][k], g, **PARAM_TOL,
+                                   err_msg=k)
+        np.testing.assert_allclose(
+            r["ranks"][0]["local_grads"][k] + r["ranks"][1]["local_grads"][k],
+            r["ranks"][0]["grads"][k], rtol=1e-6, atol=1e-9, err_msg=k)
 
 
 def test_batch_shares_and_divisibility():

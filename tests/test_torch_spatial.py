@@ -32,14 +32,14 @@ import torch
 
 from lsi_tpu.geometry import projection
 from lsi_tpu.geometry.ldi import LDI as JLDI
+from lsi_tpu.geometry.ldi import _window_dropped_fraction
 from lsi_tpu.geometry.transforms import translation_pose
 from lsi_tpu.ops.splat import splat_bilinear
 from lsi_tpu.utils.helpers import divide_safe
 from lsi_tpu_torch.geometry.ldi import LDI, render_forward
 from lsi_tpu_torch.parallel import launch
 from lsi_tpu_torch.parallel.mesh import ProcessPlan
-from lsi_tpu_torch.parallel.spatial import (render_forward_spatial,
-                                            render_forward_windowed)
+from lsi_tpu_torch.parallel.spatial import render_forward_spatial
 
 TOL = dict(rtol=1e-5, atol=1e-5)          # tests/test_spatial.py
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -225,11 +225,47 @@ def test_windowed_render_matches_the_spatial_render(grids, case):
     t, max_dy = CASES[case]
     ldi = LDI(*(torch.from_numpy(arrays[k])
                 for k in ("textures", "disparities", "intrinsics")))
-    out = render_forward_windowed(ldi, torch.tensor(pose_of(t, 1)),
-                                  zbuffer_scale=ZSCALE, pallas_max_dy=max_dy)
+    out = render_forward(ldi, torch.tensor(pose_of(t, 1)),
+                         zbuffer_scale=ZSCALE, pallas_max_dy=max_dy)
     for key in ("rgb", "disparity", "coverage"):
         np.testing.assert_allclose(out[key].numpy(),
                                    assemble(ranks, key, 1, 32), **TOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_windowed_render_matches_jax(case):
+    """``render_forward(..., pallas_max_dy=)`` (one process) against JAX's
+    windowed render, and its ``window_dropped_frac`` against JAX's count
+    of the dropped tent mass on the same projection."""
+    rng = np.random.default_rng(3)
+    arrays = make_ldi(rng, b=2)
+    t, max_dy = CASES[case]
+    pose = pose_of(t, 2).copy()
+    ldi = LDI(*(torch.from_numpy(arrays[k])
+                for k in ("textures", "disparities", "intrinsics")))
+    out = render_forward(ldi, torch.from_numpy(pose), zbuffer_scale=ZSCALE,
+                         pallas_max_dy=max_dy)
+    jldi = j_ldi(arrays)
+    want = jax_windowed_render(jldi, jnp.asarray(pose), max_dy)
+    for key in ("rgb", "disparity", "coverage"):
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(want[key]),
+                                   **TOL)
+    b, l, h, w, _ = arrays["textures"].shape
+    rep = lambda m: jnp.repeat(m, l, axis=0)
+    tc, _, valid = projection.forward_project(
+        jldi.disparities.reshape(b * l, h, w, 1), rep(jldi.intrinsics),
+        rep(jldi.intrinsics), rep(jnp.asarray(pose)))
+    dropped = _window_dropped_fraction(tc.reshape(b, l * h, w, 2),
+                                       valid.reshape(b, l * h, w, 1),
+                                       (h, w), max_dy)
+    np.testing.assert_allclose(float(out["window_dropped_frac"]),
+                               float(dropped), rtol=1e-5, atol=1e-7)
+    # Only the motion beyond the window drops tent mass.
+    assert (float(out["window_dropped_frac"]) > 0.0) == (
+        case == "beyond_window")
+    with pytest.raises(ValueError, match="must be the LDI's"):
+        render_forward(ldi, torch.from_numpy(pose), out_hw=(h + 2, w),
+                       pallas_max_dy=max_dy)
 
 
 def test_spatial_rejects_thin_shards():
