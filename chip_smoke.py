@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, its training step, its
-training CLI (the quality recipe), the MPI baseline and the multi-process
-paths (the height-sharded render, data-parallel training) once on one
-NVIDIA GPU.
+training CLI (the quality recipe), the MPI baseline, the multi-process
+paths (the height-sharded render, data-parallel training), training from
+disk (materialized shards, KITTI and SYNTHIA layouts) and the trajectory
+sweep once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -45,10 +46,10 @@ and no result line:
              two-plane synthetic scenes, params from seed 0: 4 steps
              through make_train_step; every kernel launched once a step.
 11. timing — train step ms and steps/s at b16 and b8; each kernel vs its
-             plain version in turns, at random +-40 px and, for K1 and
-             lsi_gather_fwd, on the b16 step's own inputs (recorded from
-             one step); F.grid_sample on the same inputs as the gather's
-             library yardstick.
+             plain version in turns, at random +-40 px and on the b16
+             step's own inputs and cotangents (recorded from one step),
+             beside its bound; F.grid_sample on the same inputs as the
+             gathers' library yardstick (forward; backward for the grid).
 12. golden-quality — two two-prediction steps of the toy quality recipe
              on the card (float32, TF32 off) against the JAX numbers in
              tests/data/torch_golden_quality_toy.npz (loss parts with
@@ -63,7 +64,8 @@ and no result line:
              freeze, checkpoints; launches per step kind and per eval
              against the table; then a resume to step 10, and the eval
              CLI on the checkpoint. Host seconds (synchronised) of each
-             training batch's generation, step, eval and checkpoint save,
+             step's wait for its batch (online scenes, made by the
+             Trainer's prefetch thread), step, eval and checkpoint save,
              beside the jsonl's steps_per_sec, whose window holds them all.
 14. timing — the quality step at b8 (full and warm-up): ms, steps/s,
              peak memory; the eval step per batch; K1 on the step's own
@@ -128,15 +130,45 @@ and no result line:
 The ranks of 20-22 share one card: they show the windowed kernels, the
 halo exchange and the gradient reduction right at full width, and
 measure no multi-GPU scaling.
+23. shards — python -m lsi_tpu_torch.data.materialize writes 64
+             multi-object scenes at 256x768 with 8 worker processes
+             (timed); then phase 13's run of kitti_ldi3_quality through
+             the training CLI from those shards (data.root,
+             data.prefetch=2): launches per step kind and per eval as
+             phase 13's, the step's wait for each batch and the jsonl's
+             steps_per_sec beside phase 13's online readings; 6 batches
+             through the prefetcher (pinned buffers, a side stream)
+             bitwise equal to the synchronous stream's.
+24. datasets — python -m lsi_tpu_torch.data.layouts writes a KITTI raw
+             tree (375x1242 PNGs, 2 drives of 24 frames, calibration, OXTS
+             packets, Velodyne scans on every other frame) and a
+             SYNTHIA-SEQS sequence (760x1280, 16 frames, 16-bit depth)
+             from synthetic scenes; kitti_ldi3_quality trains through the
+             CLI on its own dataset (kitti, no override) for 4 steps with
+             an eval against the LiDAR ground truth and a checkpoint; one
+             batch of temporal pairs (OXTS poses) through the quality
+             step (loss parts and gradient finite); synthia_ldi2_splat
+             trains 3 steps on SYNTHIA. Launches per step and eval
+             asserted; which decoder each reader used. Then every kernel
+             of the temporal step and of one more SYNTHIA step, on that
+             step's own recorded inputs and cotangents, against its plain
+             version (tolerances of phases 3, 7 and 8), and timed.
+25. trajectory — the eval CLI's --trajectory_gif on trajectory_sweep
+             (kitti_ldi2 widths, 256x768, bf16, fresh weights): 60 views
+             in 8 K1 launches, 60 frames in the GIF (without PIL: the
+             option refuses and the frames go out as PNGs written and
+             decoded by the standard library); one chunk of 8 poses
+             against 8 single-pose renders within 1e-5; the sweep's ms
+             and frames/s.
 
 The line before the last two is {"kernels": [...]}, then the card's name
 and power limit as nvidia-smi prints them, and last
 {"ok": true, "device": {...}}. Each kernel's ``launches`` counts the
-main paths (phases 5, 10, 13, 16, 17 and 21's bf16 steps, each counted
-from 0); the windowed modes' count phase 20's ranks. Every entry's
-``ms`` and ``plain_ms`` are CUDA-event time per call (host work in the
-wrapper included); the windowed entries also carry ``device_ms``, the
-kernel alone by torch.profiler.
+main paths (phases 5, 10, 13, 16, 17, 21's bf16 steps, 23, 24 and 25,
+each counted from 0); the windowed modes' count phase 20's ranks. Every
+entry's ``ms`` and ``plain_ms`` are CUDA-event time per call (host work
+in the wrapper included); the windowed entries also carry ``device_ms``,
+the kernel alone by torch.profiler.
 """
 
 from __future__ import annotations
@@ -145,11 +177,13 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -157,7 +191,8 @@ import torch
 
 from lsi_tpu_torch.api import LSIModel
 from lsi_tpu_torch.config import Config, build_config, get_config
-from lsi_tpu_torch.data.pipeline import Batch, batch_stream
+from lsi_tpu_torch.data.pipeline import (Batch, batch_stream, decode_batch,
+                                         make_dataset)
 from lsi_tpu_torch.geometry.homography import plane_homography
 from lsi_tpu_torch.geometry.ldi import LDI, render_forward
 from lsi_tpu_torch.geometry.ldi import splat_inputs as ldi_splat_inputs
@@ -204,6 +239,16 @@ GOLDEN_COVERAGE_RTOL = 1e-3
 # d_image of the gather sums K1's atomics: the same.
 VJP_RTOL = 1e-4
 VJP_ATOL_OF_MAX = 1e-5
+# lsi_splat_vjp on a step's own cotangents gets, on top, float32's
+# rounding bound for its sums: 2 gamma_n T per element (both sides round,
+# each within gamma_n = n u / (1 - n u) of T, u = 2^-24, n = 4 (C + 2)
+# products and sums; Higham's bound for a dot product), where T is the sum
+# of the magnitudes of the terms that the element adds (splat_vjp_terms).
+# The composite's cotangents are g_accum = g / wsum and g_wsum =
+# -g . accum / wsum^2, so where wsum is small an element's terms
+# v . g_accum[k] and g_wsum[k] cancel: its rounding follows T, which
+# there exceeds the element and the tensor's largest entry.
+FLOAT32_UNIT_ROUNDOFF = 2.0 ** -24
 # Golden train (tests/test_torch_train.py gives the reasons): the splat
 # and gather gradients jump where a coordinate crosses a pixel or
 # snap-zone edge, so JAX's own jit and eager gradients differ by up to
@@ -323,6 +368,25 @@ TORCHRUN_SETS = ["data.dataset=synthetic", "data.synthetic_scene=multi",
                  "train.eval_batches=1", "train.freeze_layer0_step=2",
                  "train.checkpoint_every=2", "train.log_every=1"]
 
+# Training from disk (phases 23-24): 64 materialized scenes (one shard);
+# KITTI raw at 375x1242, two drives (the train split and the held-out
+# one) of 24 frames; SYNTHIA-SEQS at 760x1280, 16 frames; layouts and
+# shards written by 8 worker processes. A KITTI eval batch has no
+# target-view ground truth, so only the render launches K1. The SYNTHIA
+# preset renders by the splat alone.
+SHARD_COUNT = 64
+SHARD_WORKERS = 8
+KITTI_DRIVES, KITTI_FRAMES = 2, 24
+SYNTHIA_FRAMES = 16
+KITTI_EVAL_LAUNCHES = {"splat_fwd": 1, "splat_vjp": 0, "gather_fwd": 0,
+                       "gather_bwd_coords": 0}
+SPLAT_STEP = {"splat_fwd": 1, "splat_vjp": 1, "gather_fwd": 0,
+              "gather_bwd_coords": 0}
+# The trajectory sweep (phase 25): 60 views in chunks of 8 poses, one K1
+# launch each; a chunk against single renders as K1 against plain.
+TRAJECTORY_CHUNKS = 8
+TRAJECTORY_ATOL = 1e-5
+
 # H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -336,9 +400,9 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def run(cmd) -> str:
-    return subprocess.run(cmd, check=True, capture_output=True,
-                          text=True).stdout.strip()
+def run(cmd, cwd=None) -> str:
+    return subprocess.run(cmd, check=True, capture_output=True, text=True,
+                          cwd=cwd).stdout.strip()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -458,24 +522,67 @@ def gather_inputs(rng: np.random.Generator, dev: torch.device):
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
-                rtol: float, atol: float) -> float:
+                rtol: float, atol: float, slack=None) -> float:
+    """``got`` within ``atol + rtol |ref|`` (plus ``slack``, a tensor of
+    ``ref``'s shape, where given) of ``ref`` everywhere."""
     err = (got - ref).abs()
-    bad = err > atol + rtol * ref.abs()
+    allowed = atol + rtol * ref.abs()
+    if slack is not None:
+        allowed = allowed + slack
+    bad = err > allowed
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite values")
     if bad.any():
         fail(f"{name}: {int(bad.sum())} elements off, max abs err "
-             f"{err.max().item():.3e} (rtol {rtol}, atol {atol:.3e})")
+             f"{err.max().item():.3e} (rtol {rtol}, atol {atol:.3e}"
+             + ("" if slack is None else
+                f", rounding slack up to {slack.max().item():.3e} and "
+                f"{slack[bad].max().item():.3e} where off") + ")")
     return err.max().item()
 
 
-def check_vjp(name: str, got, ref) -> float:
-    """Each gradient against the plain one: VJP_RTOL, VJP_ATOL_OF_MAX."""
+def check_vjp(name: str, got, ref, slack=(None, None, None)) -> float:
+    """Each gradient against the plain one: VJP_RTOL, VJP_ATOL_OF_MAX,
+    plus ``slack`` (per gradient, a tensor or None)."""
     err = 0.0
-    for i, (g, r) in enumerate(zip(got, ref)):
+    for i, (g, r, s) in enumerate(zip(got, ref, slack)):
         atol = VJP_ATOL_OF_MAX * r.abs().max().item()
-        err = max(err, check_close(f"{name}[{i}]", g, r, VJP_RTOL, atol))
+        err = max(err, check_close(f"{name}[{i}]", g, r, VJP_RTOL, atol, s))
     return err
+
+
+def splat_vjp_terms(values, coords, weights, g_accum, g_wsum, out_hw):
+    """Per element of (d_values, d_coords, d_weights), the sum T of the
+    magnitudes of the terms that lsi_splat_vjp adds into it: the plain VJP
+    on |values|, |weights| and |cotangents| (whose bilinear fractions are
+    >= 0) for d_values and d_weights; for d_coords the upper bound |w|
+    sum_k Q_k (|d frac_k / dx| <= 1), where Q_k = |v| . |g_accum[k]| +
+    |g_wsum[k]| at the in-image corner k, read as the plain VJP's d_weights
+    at the integer coordinate of that corner."""
+    v, w, ga, gw = (t.abs() for t in (values, weights, g_accum, g_wsum))
+    t_values, _, t_weights = splat_cuda._plain_vjp(
+        v, coords, w, ga, gw, out_hw, (True, False, True))
+    base = torch.floor(coords)
+    q = torch.zeros_like(weights)
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        corner = base + base.new_tensor([dx, dy])
+        q += splat_cuda._plain_vjp(v, corner, w, ga, gw, out_hw,
+                                   (False, False, True))[2]
+    return t_values, (w * q).expand_as(coords), t_weights
+
+
+def splat_vjp_gamma(channels: int) -> float:
+    """gamma_n for lsi_splat_vjp's sums over ``channels`` values."""
+    n = 4 * (channels + 2)
+    return n * FLOAT32_UNIT_ROUNDOFF / (1 - n * FLOAT32_UNIT_ROUNDOFF)
+
+
+def splat_vjp_slack(values, coords, weights, g_accum, g_wsum, out_hw):
+    """2 gamma_n T for (d_values, d_coords, d_weights): float32's
+    rounding bound for the difference of two orders of the same sums."""
+    gamma = splat_vjp_gamma(values.shape[-1])
+    return tuple(2 * gamma * t for t in splat_vjp_terms(
+        values, coords, weights, g_accum, g_wsum, out_hw))
 
 
 def grads_of(fn, inputs, cotangents):
@@ -499,15 +606,40 @@ def with_tf32_off(fn):
          torch.backends.cudnn.allow_tf32) = old
 
 
+class Recorded:
+    """``fn`` (a kernel wrapper called through its module's global name)
+    with its arguments passed to ``record`` first. The launch counters
+    that ``fn`` keeps on itself under that global name read and write
+    ``fn``'s own."""
+
+    def __init__(self, fn, record):
+        self.fn, self.record = fn, record
+
+    def __call__(self, *args, **kwargs):
+        self.record(*args, **kwargs)
+        return self.fn(*args, **kwargs)
+
+    def _counter(name):
+        return property(lambda self: getattr(self.fn, name),
+                        lambda self, v: setattr(self.fn, name, v))
+
+    launches = _counter("launches")
+    window_launches = _counter("window_launches")
+
+
 @contextlib.contextmanager
 def recording():
-    """Record the arguments (cloned) of every K1 and lsi_gather_fwd launch
-    made inside, as {"splat_fwd": [(values, coords, weights, out_hw,
-    snap)], "gather_fwd": [(image, coords)]}: the main path's own inputs.
-    The launches themselves run and count as usual."""
-    calls = {"splat_fwd": [], "gather_fwd": []}
+    """Record the arguments (cloned) of every unwindowed kernel launch made
+    inside, as {"splat_fwd": [(values, coords, weights, out_hw, snap)],
+    "gather_fwd": [(image, coords)], "splat_vjp": [(values, coords,
+    weights, g_accum, g_wsum, out_hw)], "gather_bwd_coords": [(image,
+    coords, g_sampled, g_valid)]}: the main path's own inputs. The
+    launches themselves run and count as usual."""
+    calls = {"splat_fwd": [], "gather_fwd": [], "splat_vjp": [],
+             "gather_bwd_coords": []}
     launch_splat = splat_cuda._launch_splat
     launch_gather = gather_cuda._launch_gather_fwd
+    vjp, bwd = splat_cuda.splat_vjp, gather_cuda.gather_bwd_coords
 
     def splat(values, coords, weights, out_hw, snap, tiling=None,
               window=(-1, 1, 0)):
@@ -521,12 +653,24 @@ def recording():
         calls["gather_fwd"].append((image.clone(), coords.clone()))
         return launch_gather(image, coords, tiling)
 
+    def record_vjp(values, coords, weights, g_accum, g_wsum, out_hw,
+                   needs=(True, True, True), max_dy=-1, **kw):
+        if max_dy < 0:
+            calls["splat_vjp"].append(tuple(t.clone() for t in (
+                values, coords, weights, g_accum, g_wsum)) + (tuple(out_hw),))
+
+    def record_bwd(*tensors):
+        calls["gather_bwd_coords"].append(tuple(t.clone() for t in tensors))
+
     splat_cuda._launch_splat, gather_cuda._launch_gather_fwd = splat, gather
+    splat_cuda.splat_vjp = Recorded(vjp, record_vjp)
+    gather_cuda.gather_bwd_coords = Recorded(bwd, record_bwd)
     try:
         yield calls
     finally:
         splat_cuda._launch_splat = launch_splat
         gather_cuda._launch_gather_fwd = launch_gather
+        splat_cuda.splat_vjp, gather_cuda.gather_bwd_coords = vjp, bwd
 
 
 def k1_bound(values, coords, weights, out_hw):
@@ -631,17 +775,18 @@ def gather_bwd_bound(image, coords, cot):
 
 
 def time_gather_bwd(label: str, smi: str, image, coords, gen,
-                    iters: int = 20):
+                    iters: int = 20, cot=None):
     """lsi_gather_bwd_coords against the plain coordinate VJP (autograd
-    through bilinear_sample) on these inputs with random cotangents (VJP
-    tolerances), both timed in turns, and F.grid_sample's backward for the
-    grid alone on the same inputs; logs and returns (times, bound, max abs
-    err, grid_sample ms)."""
+    through bilinear_sample) on these inputs with the cotangents ``cot``
+    (random where None; VJP tolerances), both timed in turns, and
+    F.grid_sample's backward for the grid alone on the same inputs; logs
+    and returns (times, bound, max abs err, grid_sample ms)."""
     c = image.shape[-1]
-    cot = (torch.randn(coords.shape[:-1] + (c,), generator=gen,
-                       device=image.device),
-           torch.randn(coords.shape[:-1] + (1,), generator=gen,
-                       device=image.device))
+    if cot is None:
+        cot = (torch.randn(coords.shape[:-1] + (c,), generator=gen,
+                           device=image.device),
+               torch.randn(coords.shape[:-1] + (1,), generator=gen,
+                           device=image.device))
     fns = {
         "plain": lambda: gather_cuda._plain_coords_vjp(image, coords, *cot),
         "kernel": lambda: gather_cuda.gather_bwd_coords(image, coords, *cot)}
@@ -659,8 +804,9 @@ def time_gather_bwd(label: str, smi: str, image, coords, gen,
         f"{1e3 * t['kernel']:.1f} us/call {readings['kernel']}, plain "
         f"(autograd through bilinear_sample) {1e3 * t['plain']:.1f} us/call; "
         f"grid_sample backward (grid only) {1e3 * lib:.1f} us; bound "
-        f"{1e3 * bnd[0]:.1f} us ({bnd[1]}); max abs err {err:.3e} (rtol "
-        f"{VJP_RTOL}, atol {VJP_ATOL_OF_MAX}*max|ref|)")
+        f"{1e3 * bnd[0]:.1f} us ({bnd[1]}), "
+        f"{100 * bnd[0] / t['kernel']:.0f}% of it; max abs err {err:.3e} "
+        f"(rtol {VJP_RTOL}, atol {VJP_ATOL_OF_MAX}*max|ref|)")
     return t, bnd, err, lib
 
 
@@ -935,7 +1081,9 @@ def host_seconds(fn):
 def tracing_trainer():
     """Record what the Trainer does inside, as events: ("step", index)
     when a step's phase is chosen, ("data", seconds) after each training
-    batch is made, ("run", phase, launches, seconds) after each step,
+    batch is taken from the Trainer's data iterator (the prefetch thread
+    makes it; the seconds are what the step waited for it), ("run",
+    phase, launches, seconds) after each step,
     ("eval", step, launches, seconds) after each eval, ("save", seconds)
     after each checkpoint, ("splice", state dict) after the splice from
     the best export. Seconds are the host's, synchronised."""
@@ -944,7 +1092,7 @@ def tracing_trainer():
     phase, run_step, run_eval, splice = (cls.phase, cls.run_step,
                                          cls.run_eval,
                                          cls.splice_best_layer0)
-    stream, save = trainer_mod.batch_stream, trainer_mod.CheckpointManager.save
+    stream, save = trainer_mod.make_dataset, trainer_mod.CheckpointManager.save
     in_eval = []
 
     def delta(before):
@@ -952,11 +1100,14 @@ def tracing_trainer():
 
     def traced_stream(*args, **kwargs):
         batches = stream(*args, **kwargs)
-        while True:
-            batch, s = host_seconds(lambda: next(batches))
-            if not in_eval:
-                events.append(("data", s))
-            yield batch
+        try:
+            while True:
+                batch, s = host_seconds(lambda: next(batches))
+                if not in_eval:
+                    events.append(("data", s))
+                yield batch
+        finally:
+            batches.close()
 
     def traced_phase(self, step):
         events.append(("step", step))
@@ -991,14 +1142,14 @@ def tracing_trainer():
     (cls.phase, cls.run_step, cls.run_eval,
      cls.splice_best_layer0) = (traced_phase, traced_run_step,
                                 traced_run_eval, traced_splice)
-    trainer_mod.batch_stream = traced_stream
+    trainer_mod.make_dataset = traced_stream
     trainer_mod.CheckpointManager.save = traced_save
     try:
         yield events
     finally:
         (cls.phase, cls.run_step, cls.run_eval,
          cls.splice_best_layer0) = phase, run_step, run_eval, splice
-        trainer_mod.batch_stream = stream
+        trainer_mod.make_dataset = stream
         trainer_mod.CheckpointManager.save = save
 
 
@@ -1014,42 +1165,63 @@ def check_layer0_kept(model_cfg, net, spliced, when: str) -> None:
                  f"({when})")
 
 
-def quality_run(dev, workdir: Path) -> str:
+def traced_cli(tag: str, config: str, sets, phases, step_launches: dict,
+               evals_at, eval_launches: dict, saves: int):
+    """The training CLI on ``config`` with ``sets``, traced: each step's
+    phase must be ``phases``' and its launches ``step_launches[phase]``,
+    evals must come after the steps ``evals_at``, each launching
+    ``eval_launches``, and ``saves`` checkpoints be written. Returns the
+    final state, the events and the host seconds (card synchronised) by
+    kind: "data" (the step's wait for its batch), "step", "eval", "save"."""
+    with tracing_trainer() as events:
+        state, _ = train_main([f"--config={config}", "--set", *sets])
+    torch.cuda.synchronize()
+    steps = [e[1] for e in events if e[0] == "step"]
+    runs = [e for e in events if e[0] == "run"]
+    evals = [e for e in events if e[0] == "eval"]
+    if steps != list(range(len(phases))) or [r[1] for r in runs] != phases:
+        fail(f"{tag}: steps {steps}, phases {[r[1] for r in runs]}")
+    for i, (_, name, launched, _) in enumerate(runs):
+        if launched != step_launches[name]:
+            fail(f"{tag}: step {i + 1} ({name}) launched {launched}, "
+                 f"expected {step_launches[name]}")
+    if [e[1] for e in evals] != list(evals_at) or any(
+            e[2] != eval_launches for e in evals):
+        fail(f"{tag}: evals {[(e[1], e[2]) for e in evals]}")
+    host = {"data": [e[1] for e in events if e[0] == "data"],
+            "step": [r[3] for r in runs], "eval": [e[3] for e in evals],
+            "save": [e[1] for e in events if e[0] == "save"]}
+    if [len(v) for v in host.values()] != [len(phases), len(phases),
+                                           len(evals_at), saves]:
+        fail(f"{tag}: host timings {host}")
+    return state, events, host
+
+
+def secs(v) -> str:
+    return "[" + ", ".join(f"{x:.4f}" for x in v) + "]"
+
+
+def quality_run(dev, workdir: Path):
     """Phase 13: the training CLI on the quality preset, its resume and
-    the eval CLI; returns the summary for the log line."""
+    the eval CLI; returns the summary for the log line, the host seconds
+    of the first run (``traced_cli``) and its jsonl's steps_per_sec."""
     ckpt = workdir / "quality_run"
     sets = QUALITY_SETS + [f"train.checkpoint_dir={ckpt}"]
     cfg = build_config("kitti_ldi3_quality", sets)
     torch.cuda.reset_peak_memory_stats()
-    with tracing_trainer() as events:
-        state, _ = train_main(["--config=kitti_ldi3_quality", "--set", *sets])
-    torch.cuda.synchronize()
+    want_phases = ["warmup"] * 2 + ["full"] * 4 + ["freeze"] * 2
+    state, events, host = traced_cli(
+        "quality", "kitti_ldi3_quality", sets, want_phases, STEP_LAUNCHES,
+        (3, 6, 8), EVAL_LAUNCHES, 2)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    steps = [e[1] for e in events if e[0] == "step"]
     runs = [e for e in events if e[0] == "run"]
     evals = [e for e in events if e[0] == "eval"]
     splices = [i for i, e in enumerate(events) if e[0] == "splice"]
-    want_phases = ["warmup"] * 2 + ["full"] * 4 + ["freeze"] * 2
-    if steps != list(range(8)) or [r[1] for r in runs] != want_phases:
-        fail(f"quality: steps {steps}, phases {[r[1] for r in runs]}")
-    for i, (_, name, launched, _) in enumerate(runs):
-        if launched != STEP_LAUNCHES[name]:
-            fail(f"quality: step {i + 1} ({name}) launched {launched}, "
-                 f"expected {STEP_LAUNCHES[name]}")
-    if [e[1] for e in evals] != [3, 6, 8] or any(
-            e[2] != EVAL_LAUNCHES for e in evals):
-        fail(f"quality: evals {[(e[1], e[2]) for e in evals]}")
     if len(splices) != 1 or events[splices[0] + 1] != ("step", 6):
         fail(f"quality: splice events at {splices}, expected one just "
              "before step index 6")
     spliced = events[splices[0]][1]
     check_layer0_kept(cfg.model, state.net, spliced, "step 8")
-
-    host = {"data": [e[1] for e in events if e[0] == "data"],
-            "step": [r[3] for r in runs], "eval": [e[3] for e in evals],
-            "save": [e[1] for e in events if e[0] == "save"]}
-    if [len(v) for v in host.values()] != [8, 8, 3, 2]:
-        fail(f"quality: host timings {host}")
 
     with open(ckpt / "train.jsonl") as f:
         lines = [json.loads(line) for line in f]
@@ -1094,9 +1266,6 @@ def quality_run(dev, workdir: Path) -> str:
     if not png.read_bytes().startswith(b"\x89PNG") or not all(
             np.isfinite(v) for v in results.values()):
         fail(f"quality eval CLI: {results}")
-    def secs(v):
-        return "[" + ", ".join(f"{x:.4f}" for x in v) + "]"
-
     return (f"8 steps (phases {want_phases}), launches per step "
             f"{ {r[1]: r[2] for r in runs} }, per eval batch "
             f"{evals[0][2]}; eval_abs_rel {abs_rel}; best export step "
@@ -1105,12 +1274,14 @@ def quality_run(dev, workdir: Path) -> str:
             f"{peak:.2f} GiB; eval CLI on the checkpoint: abs_rel "
             f"{results['abs_rel']:.4f}, psnr {results['psnr']:.3f}, "
             f"occ_abs_rel {results['occ_abs_rel']:.4f}; host seconds (card "
-            f"synchronised) of steps 1-8: batch generation "
+            f"synchronised) of steps 1-8: the step's wait for its batch "
+            f"(online scenes, made by the prefetch thread) "
             f"{secs(host['data'])}, step {secs(host['step'])}, evals at "
             f"3/6/8 {secs(host['eval'])}, checkpoint saves at 4/8 "
             f"{secs(host['save'])}; the jsonl's steps_per_sec {secs(rates)} "
-            "(each window holds the step's batch generation, the step, and "
-            "the eval and save that follow the step before)")
+            "(each window holds the step's wait for its batch, the step, "
+            "and the eval and save that follow the step before)",
+            host, rates)
 
 
 def vjp_bound(values, coords, weights, out_hw):
@@ -1123,6 +1294,47 @@ def vjp_bound(values, coords, weights, out_hw):
                  20 * n * hs * ws
                  + (2 * c + 2) * 2 * corners_in_image(coords, *out_hw)
                  + (2 * c + 12) * n * hs * ws)
+
+
+def time_vjp(label: str, smi: str, values, coords, weights, g_accum, g_wsum,
+             out_hw, iters: int = 10):
+    """lsi_splat_vjp against autograd through the plain splat on these
+    inputs and cotangents (VJP tolerances), both timed in turns; logs and
+    returns (times, bound, max abs err)."""
+    fns = {
+        "plain": lambda: splat_cuda._plain_vjp(values, coords, weights,
+                                               g_accum, g_wsum, out_hw,
+                                               (True, True, True)),
+        "kernel": lambda: splat_cuda.splat_vjp(values, coords, weights,
+                                               g_accum, g_wsum, out_hw)}
+    ref = fns["plain"]()
+    got = fns["kernel"]()
+    slack = splat_vjp_slack(values, coords, weights, g_accum, g_wsum,
+                            out_hw)
+    err = check_vjp(f"lsi_splat_vjp {label}", got, ref, slack)
+    scale = ", ".join(f"{r.abs().max().item():.3e}" for r in ref)
+    # How much of the rounding slack the run used: the elements beyond
+    # VJP_RTOL and VJP_ATOL_OF_MAX alone, and their largest err / slack.
+    beyond, used = 0, 0.0
+    for g, r, sl in zip(got, ref, slack):
+        e = (g - r).abs()
+        out = e > VJP_ATOL_OF_MAX * r.abs().max() + VJP_RTOL * r.abs()
+        beyond += int(out.sum())
+        if out.any():
+            used = max(used, (e[out] / sl[out]).max().item())
+    del ref, got, slack
+    t, readings = in_turns(fns, iters=iters)
+    bnd = vjp_bound(values, coords, weights, out_hw)
+    log("timing", f"{smi} | lsi_splat_vjp {label} {tuple(values.shape)} -> "
+        f"{tuple(out_hw)}: {1e3 * t['kernel']:.1f} us/call "
+        f"{readings['kernel']}, plain (autograd through splat_bilinear) "
+        f"{1e3 * t['plain']:.1f} us/call; bound {1e3 * bnd[0]:.1f} us "
+        f"({bnd[1]}); {100 * bnd[0] / t['kernel']:.0f}% of the bound; max "
+        f"abs err {err:.3e} (rtol {VJP_RTOL}, atol {VJP_ATOL_OF_MAX}"
+        f"*max|ref|, plus float32's rounding slack 2 gamma_n T; max|ref| of "
+        f"d_values, d_coords, d_weights {scale}); {beyond} elements beyond "
+        f"rtol and atol alone, using up to {used:.3f} of their slack")
+    return t, bnd, err
 
 
 def quality_timing(dev, smi: str) -> dict:
@@ -1174,22 +1386,9 @@ def quality_timing(dev, smi: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(5)
     cot = (torch.randn((n,) + out_hw + (c,), generator=gen, device=dev),
            torch.randn((n,) + out_hw + (1,), generator=gen, device=dev))
-    fns = {
-        "plain": lambda: splat_cuda._plain_vjp(values, coords, weights, *cot,
-                                               out_hw, (True, True, True)),
-        "kernel": lambda: splat_cuda.splat_vjp(values, coords, weights, *cot,
-                                               out_hw)}
-    err = check_vjp("lsi_splat_vjp on the b8 quality step's own inputs",
-                    fns["kernel"](), fns["plain"]())
-    t, readings = in_turns(fns, iters=10)
-    bnd = vjp_bound(values, coords, weights, out_hw)
+    t, bnd, err = time_vjp("on the b8 quality step's own inputs", smi,
+                           values, coords, weights, *cot, out_hw)
     out["splat_vjp"] = (t, bnd, err, None)
-    log("timing", f"{smi} | lsi_splat_vjp on the b8 quality step's own "
-        f"inputs {tuple(values.shape)} -> {out_hw}: "
-        f"{1e3 * t['kernel']:.1f} us/call {readings['kernel']}, plain "
-        f"(autograd through splat_bilinear) {1e3 * t['plain']:.1f} us/call; "
-        f"bound {1e3 * bnd[0]:.1f} us ({bnd[1]}); max abs err {err:.3e} "
-        f"(rtol {VJP_RTOL}, atol {VJP_ATOL_OF_MAX}*max|ref|)")
     del full, layer0, values, coords, weights, cot
     image, gcoords = calls["gather_fwd"][0]
     t, bnd, err, lib = time_gather_fwd("on the b8 quality step's own inputs",
@@ -1368,9 +1567,9 @@ def mpi_timing(dev, smi: str) -> dict:
     with recording() as calls:
         step(state, batch)
     del state, batch, eval_batch
-    if [len(v) for v in calls.values()] != [1, 1]:
+    if [len(v) for v in calls.values()] != [1, 1, 0, 0]:
         fail(f"one MPI step recorded {[len(v) for v in calls.values()]} "
-             "K1 and gather launches")
+             "launches")
     image, coords = calls["gather_fwd"][0]
     _, _, g_err, _ = time_gather_fwd("on the b8 mpi_baseline step's own "
                                      "inputs (B*D planes)", smi, image, coords)
@@ -1820,6 +2019,335 @@ def torchrun_phase(dev, workdir: Path) -> str:
                         if "eval_abs_rel" in r))
 
 
+# ---------------------------------------------------------------------
+# Phases 23-25: training from disk (materialized shards; KITTI and SYNTHIA
+# layouts through the native loader) and the trajectory sweep.
+
+def same_batches(a: Batch, b: Batch) -> bool:
+    return all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and x.dtype == y.dtype
+                                      and torch.equal(x, y))
+        for x, y in ((getattr(a, f.name), getattr(b, f.name))
+                     for f in dataclasses.fields(Batch)))
+
+
+def prefetch_matches_sync(cfg, dev, n: int) -> None:
+    """``n`` batches through the prefetcher (pinned buffers, side stream)
+    bitwise equal to the same batches made on this thread."""
+    sync = batch_stream(cfg, seed=0, device=dev)
+    pre = make_dataset(cfg, seed=0, device=dev)
+    try:
+        for i in range(n):
+            got = next(pre)
+            # Work on the consumer's stream between takes: a copy the
+            # stream did not wait for, or memory handed out early, shows
+            # as a difference.
+            junk = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+            junk.fill_(i)
+            if not same_batches(got, next(sync)):
+                fail(f"prefetched batch {i} differs from the synchronous one")
+            del got, junk
+    finally:
+        pre.close()
+
+
+def shards_phase(dev, smi: str, workdir: Path, online_host: dict,
+                 online_rates) -> str:
+    """Phase 23: materialize 64 multi-object scenes at 256x768 with worker
+    processes through the CLI, train the quality preset from them through
+    the training CLI with data.prefetch=2, and hold the prefetched batches
+    bitwise to the synchronous stream."""
+    shards = workdir / "shards"
+    h, w = get_config("kitti_ldi3_quality").data.height, \
+        get_config("kitti_ldi3_quality").data.width
+    t0 = time.perf_counter()
+    out = run([sys.executable, "-m", "lsi_tpu_torch.data.materialize",
+               "--out", str(shards), "--scene", "multi", "--height", str(h),
+               "--width", str(w), "--count", str(SHARD_COUNT), "--workers",
+               str(SHARD_WORKERS)], cwd=REPO)
+    t_mat = time.perf_counter() - t0
+    ckpt = workdir / "shards_run"
+    sets = QUALITY_SETS + [f"data.root={shards}", "data.prefetch=2",
+                           f"train.checkpoint_dir={ckpt}"]
+    want_phases = ["warmup"] * 2 + ["full"] * 4 + ["freeze"] * 2
+    t0 = time.perf_counter()
+    _, _, host = traced_cli("shards", "kitti_ldi3_quality", sets,
+                            want_phases, STEP_LAUNCHES, (3, 6, 8),
+                            EVAL_LAUNCHES, 2)
+    wall = time.perf_counter() - t0
+    with open(ckpt / "train.jsonl") as f:
+        rates = [r["steps_per_sec"] for r in map(json.loads, f)
+                 if "total" in r]
+    cfg = build_config("kitti_ldi3_quality", sets)
+    prefetch_matches_sync(cfg.data, dev, 6)
+    return (f"{smi} | materialize CLI: {SHARD_COUNT} multi-object scenes at "
+            f"{h}x{w}, {SHARD_WORKERS} workers, {t_mat:.2f} s ({out}); "
+            f"kitti_ldi3_quality from the shards (data.prefetch=2), 8 steps "
+            f"in {wall:.2f} s: the step's wait for its batch "
+            f"{secs(host['data'])} s, step {secs(host['step'])} s, the "
+            f"jsonl's steps_per_sec {secs(rates)}; phase 13 online: wait "
+            f"{secs(online_host['data'])} s, step "
+            f"{secs(online_host['step'])} s, steps_per_sec "
+            f"{secs(online_rates)}; 6 prefetched batches bitwise equal to the "
+            "synchronous stream's")
+
+
+def decoders() -> str:
+    """Which image decoders the readers used, and what was available."""
+    from lsi_tpu_torch import native
+    from lsi_tpu_torch.data import kitti, synthia
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__}"
+    except ImportError:
+        pil = "no PIL"
+    built = "built" if native.available() else \
+        f"not built ({native.build_error()[:300]})"
+    return (f"KITTI reader {dict(kitti.DECODED)}, SYNTHIA reader "
+            f"{dict(synthia.DECODED)}; native loader {built}; {pil}")
+
+
+def first_calls(calls: dict) -> dict:
+    """The first recorded launch of each kernel (what is held to the
+    plain version), the rest dropped to free their copies."""
+    return {k: v[:1] for k, v in calls.items()}
+
+
+def hold_recorded(label: str, smi: str, calls: dict) -> dict:
+    """Each kernel recorded in ``calls`` (``recording()``), on its first
+    launch's own inputs and cotangents, held to its plain version and
+    timed beside it; returns {kernel: max abs err}."""
+    errs = {}
+    if calls["splat_fwd"]:
+        errs["splat_fwd"] = time_k1(label, smi, *calls["splat_fwd"][0])[2]
+    if calls["splat_vjp"]:
+        errs["splat_vjp"] = time_vjp(label, smi, *calls["splat_vjp"][0])[2]
+    if calls["gather_fwd"]:
+        errs["gather_fwd"] = time_gather_fwd(label, smi,
+                                             *calls["gather_fwd"][0])[2]
+    if calls["gather_bwd_coords"]:
+        image, coords, *cot = calls["gather_bwd_coords"][0]
+        errs["gather_bwd_coords"] = time_gather_bwd(
+            label + " and cotangents", smi, image, coords, None, cot=cot)[2]
+    return errs
+
+
+def datasets_phase(dev, smi: str, workdir: Path):
+    """Phase 24: kitti_ldi3_quality and synthia_ldi2_splat through the
+    training CLI from generated KITTI raw and SYNTHIA-SEQS layouts at the
+    datasets' own image sizes, with the presets' own datasets; then every
+    kernel on the temporal KITTI step's and the SYNTHIA step's own inputs
+    against its plain version. Returns the launches of the main path and
+    {kernel: max abs err}."""
+    from lsi_tpu_torch.data import kitti, layouts, synthia
+    kitti.DECODED.clear()
+    synthia.DECODED.clear()
+    t0 = time.perf_counter()
+    for kind, frames, extra in (
+            ("kitti", KITTI_FRAMES, ["--drives", str(KITTI_DRIVES)]),
+            ("synthia", SYNTHIA_FRAMES, [])):
+        run([sys.executable, "-m", "lsi_tpu_torch.data.layouts", kind,
+             "--out", str(workdir / kind), "--frames", str(frames),
+             "--workers", str(SHARD_WORKERS)] + extra, cwd=REPO)
+    t_write = time.perf_counter() - t0
+
+    reset_counts()
+    ckpt = workdir / "kitti_run"
+    sets = [f"data.root={workdir / 'kitti'}", "train.max_steps=4",
+            "train.eval_every=4", "train.eval_batches=1",
+            "train.checkpoint_every=4", "train.log_every=1",
+            f"train.checkpoint_dir={ckpt}"]
+    state, _, host = traced_cli("kitti", "kitti_ldi3_quality", sets,
+                                ["warmup"] * 4, STEP_LAUNCHES, (4,),
+                                KITTI_EVAL_LAUNCHES, 1)
+    with open(ckpt / "train.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    rates = [r["steps_per_sec"] for r in lines if "total" in r]
+    abs_rel = [r["eval_abs_rel"] for r in lines if "eval_abs_rel" in r]
+    if len(abs_rel) != 1 or not np.isfinite(abs_rel[0]) or not list(
+            ckpt.glob("checkpoint_*")) or not (ckpt /
+                                               "best_params.npz").exists():
+        fail(f"kitti: eval_abs_rel {abs_rel}, files "
+             f"{sorted(os.listdir(ckpt))}")
+    kitti_summary = (f"steps_per_sec {secs(rates)}, the step's wait for its "
+                     f"batch {secs(host['data'])} s, step "
+                     f"{secs(host['step'])} s, eval_abs_rel against LiDAR "
+                     f"{abs_rel[0]:.4f}")
+
+    # One batch of temporal pairs (OXTS poses) through the quality step.
+    cfg = build_config("kitti_ldi3_quality", sets + [
+        "data.kitti_pairs=temporal"])
+    it = make_dataset(cfg.data, seed=0, device=dev)
+    try:
+        batch = next(it)
+    finally:
+        it.close()
+    moved = batch.pose_src2trg[:, :3, 3].norm(dim=-1)
+    # The loss parts and the gradient must be finite, and the gradient
+    # not zero.
+    with recording() as calls:
+        _, metrics = make_train_step(cfg)(state, batch)
+    temporal_calls = first_calls(calls)
+    del calls, batch
+    temporal = {k: float(v) for k, v in metrics.items()}
+    if not (all(np.isfinite(v) for v in temporal.values())
+            and temporal["grad_norm"] > 0 and bool((moved > 0.5).all())):
+        fail(f"kitti temporal: metrics {temporal}, translations {moved}")
+
+    ckpt = workdir / "synthia_run"
+    sets = [f"data.root={workdir / 'synthia'}", "train.max_steps=3",
+            "train.log_every=1", f"train.checkpoint_dir={ckpt}"]
+    s_state, _, s_host = traced_cli("synthia", "synthia_ldi2_splat", sets,
+                                    ["full"] * 3, {"full": SPLAT_STEP}, (),
+                                    {}, 1)
+    with open(ckpt / "train.jsonl") as f:
+        s_rates = [r["steps_per_sec"] for r in map(json.loads, f)
+                   if "total" in r]
+    # One more SYNTHIA step, its kernels' inputs recorded.
+    cfg = build_config("synthia_ldi2_splat", sets)
+    it = make_dataset(cfg.data, seed=1, device=dev)
+    try:
+        batch = next(it)
+    finally:
+        it.close()
+    with recording() as calls:
+        _, metrics = make_train_step(cfg)(s_state, batch)
+    synthia_calls = first_calls(calls)
+    del calls, batch, s_state, state
+    if not all(np.isfinite(float(v)) for v in metrics.values()):
+        fail(f"synthia: metrics {metrics}")
+    launched = counts()
+    recorded = [[len(c[k]) for k in KERNELS]
+                for c in (temporal_calls, synthia_calls)]
+    if recorded != [[1, 1, 1, 1], [1, 1, 0, 0]]:
+        fail(f"datasets: the temporal and SYNTHIA steps recorded {recorded} "
+             f"launches of {list(KERNELS)}")
+    log("datasets", f"{smi} | layouts written in {t_write:.2f} s (KITTI raw "
+        f"{KITTI_DRIVES} drives x {KITTI_FRAMES} frames at "
+        f"{layouts.KITTI_HW[0]}x{layouts.KITTI_HW[1]}, SYNTHIA-SEQS "
+        f"{SYNTHIA_FRAMES} frames at {layouts.SYNTHIA_HW[0]}x"
+        f"{layouts.SYNTHIA_HW[1]}, {SHARD_WORKERS} workers); "
+        f"kitti_ldi3_quality from KITTI (its own dataset, 256x768 b8, 4 "
+        f"warm-up steps, launches per step {STEP_LAUNCHES['warmup']} as "
+        f"phase 13's warm-up, per eval batch {KITTI_EVAL_LAUNCHES}): "
+        f"{kitti_summary}; one temporal batch through the quality step, "
+        f"translations {[round(float(v), 3) for v in moved]} m, total "
+        f"{temporal['total']:.5f}, grad_norm {temporal['grad_norm']:.5f}; "
+        f"synthia_ldi2_splat from SYNTHIA (256x768 b8, 3 steps, launches "
+        f"per step {SPLAT_STEP}): steps_per_sec {secs(s_rates)}, the step's "
+        f"wait for its batch {secs(s_host['data'])} s, step "
+        f"{secs(s_host['step'])} s; decoders: {decoders()}")
+    errs = hold_recorded("on the temporal KITTI quality step's own inputs",
+                         smi, temporal_calls)
+    del temporal_calls
+    for k, v in hold_recorded("on the b8 synthia_ldi2_splat step's own "
+                              "inputs", smi, synthia_calls).items():
+        errs[k] = max(errs[k], v)
+    return launched, errs
+
+
+def read_png_stdlib(path) -> np.ndarray:
+    """Decode an 8-bit RGB PNG written by ``png.write_png`` (filter 0
+    on every row) with zlib alone."""
+    data = Path(path).read_bytes()
+    pos, idat, hw = 8, b"", None
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            hw = (int.from_bytes(body[4:8], "big"),
+                  int.from_bytes(body[:4], "big"))
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        hw[0], 1 + 3 * hw[1])
+    return rows[:, 1:].reshape(hw[0], hw[1], 3)
+
+
+def trajectory_phase(dev, smi: str, workdir: Path) -> dict:
+    """Phase 25: the eval CLI's --trajectory_gif on trajectory_sweep
+    (kitti_ldi2 widths, fresh weights) where PIL exists, else its frames
+    written as PNGs by the standard library; 8 K1 launches per 60-view
+    sweep; one chunk against 8 single-pose renders; the sweep's time.
+    Returns the launches of the sweep."""
+    import importlib.util
+    from lsi_tpu_torch.evaluation import video
+    from lsi_tpu_torch.evaluation.trajectory import render_trajectory
+    from lsi_tpu_torch.geometry.transforms import camera_trajectory
+    from lsi_tpu_torch.models import build_model
+
+    sets = [f"train.checkpoint_dir={workdir / 'no_checkpoint'}"]
+    cfg = build_config("trajectory_sweep", sets)
+    net = build_model(cfg.model)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    net = net.to(dev)
+    reset_counts()
+    frames = runner.trajectory_frames(cfg, net, dev)
+    sweep = counts()
+    if sweep != {"splat_fwd": TRAJECTORY_CHUNKS, "splat_vjp": 0,
+                 "gather_fwd": 0, "gather_bwd_coords": 0}:
+        fail(f"trajectory: a 60-view sweep launched {sweep}")
+    if tuple(frames.shape) != (60, 1, cfg.data.height, cfg.data.width, 3) \
+            or not torch.isfinite(frames).all():
+        fail(f"trajectory: frames {tuple(frames.shape)} or non-finite")
+    want = (frames.clamp(0, 1) * 255).to(torch.uint8)[:, 0].cpu().numpy()
+    if importlib.util.find_spec("PIL") is not None:
+        from PIL import Image, ImageSequence
+        gif = workdir / "sweep.gif"
+        reset_counts()
+        runner.main(["--config=trajectory_sweep", "--num_batches", "1",
+                     "--trajectory_gif", str(gif), "--set", *sets])
+        cli = counts()
+        if cli["splat_fwd"] != TRAJECTORY_CHUNKS + EVAL_LAUNCHES["splat_fwd"]:
+            fail(f"trajectory CLI launched {cli}")
+        got = [np.asarray(f.convert("RGB"))
+               for f in ImageSequence.Iterator(Image.open(gif))]
+        written = f"the eval CLI wrote {gif.name}, {len(got)} frames"
+    else:
+        try:
+            video.save_gif(frames, str(workdir / "sweep.gif"))
+            fail("trajectory: save_gif ran without PIL")
+        except RuntimeError as e:
+            refused = str(e)
+        paths = video.save_frames(frames, str(workdir / "frames"))
+        got = [read_png_stdlib(p) for p in paths]
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            fail("trajectory: the PNG frames decode to other pixels")
+        written = (f"no PIL: --trajectory_gif refuses ({refused}); "
+                   f"{len(got)} PNG frames written by the standard library, "
+                   "decoded pixels equal to the frames'")
+    if len(got) != 60:
+        fail(f"trajectory: {len(got)} frames written")
+
+    # One chunk of 8 poses against 8 single-pose renders.
+    it = make_dataset(cfg.data, seed=1, device=dev)
+    try:
+        batch = decode_batch(next(it))
+    finally:
+        it.close()
+    with torch.no_grad():
+        ldi = net(batch.src_image[:1], batch.intrinsics[:1])
+        poses = camera_trajectory(8, (0.15, 0.0, 0.0),
+                                  (0.0, 0.0, 0.01)).to(dev)
+        chunk = render_trajectory(ldi, poses=poses)
+        err = max((chunk[i] - render_forward(ldi, p[None])["rgb"]
+                   ).abs().max().item() for i, p in enumerate(poses))
+    if err > TRAJECTORY_ATOL:
+        fail(f"trajectory: a chunk is {err:.3e} from single renders")
+    sweep_ms = cuda_ms(lambda: render_trajectory(
+        ldi, 60, (0.15, 0.0, 0.0), (0.0, 0.0, 0.01), cfg.render), iters=5)
+    log("trajectory", f"{smi} | trajectory_sweep (L={cfg.model.num_layers}, "
+        f"{cfg.data.height}x{cfg.data.width}, {cfg.model.compute_dtype}, "
+        f"fresh weights): 60 views in {sweep['splat_fwd']} K1 launches; "
+        f"{written}; one chunk of 8 poses vs 8 single-pose renders: max abs "
+        f"err {err:.3e} (atol {TRAJECTORY_ATOL}); sweep {sweep_ms:.3f} ms "
+        f"({6e4 / sweep_ms:.1f} frames/s, the extreme-pose window check "
+        f"included)")
+    return sweep
+
+
 def main() -> None:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1920,7 +2448,7 @@ def main() -> None:
     # The render's own K1 inputs, recorded during one more render.
     with recording() as serve_calls:
         model.render(results[0][0], results[0][1])
-    if [len(v) for v in serve_calls.values()] != [1, 0]:
+    if [len(v) for v in serve_calls.values()] != [1, 0, 0, 0]:
         fail(f"one render recorded {serve_calls}")
     del results
 
@@ -2081,7 +2609,7 @@ def main() -> None:
     # (after the timed steps, whose peak memory the copies would raise).
     with recording() as train_calls:
         step(state, batches[0])
-    if [len(v) for v in train_calls.values()] != [1, 1]:
+    if [len(v) for v in train_calls.values()] != [1, 1, 1, 1]:
         fail(f"one train step recorded {train_calls}")
     del state, batches, stream
 
@@ -2091,22 +2619,16 @@ def main() -> None:
     _, _, err = time_k1("on the b16 kitti_ldi3_b16 step's own inputs", smi,
                         *train_calls["splat_fwd"][0])
     max_err = max(max_err, err)
-    # lsi_splat_vjp.
-    t, readings = in_turns({
-        "plain": lambda: splat_cuda._plain_vjp(*s_in, *s_cot, OUT_HW,
-                                               (True, True, True)),
-        "kernel": lambda: splat_cuda.splat_vjp(*s_in, *s_cot, OUT_HW)},
-        iters=10)
-    bnd = vjp_bound(*s_in, OUT_HW)
+    # lsi_splat_vjp at random +-40 px, then on the b16 step's own inputs
+    # and cotangents.
+    t, bnd, err = time_vjp("at random +-40 px", smi, *s_in, *s_cot, OUT_HW)
     kernels["splat_vjp"] = dict(
         replaces="lsi_tpu/kernels/splat_pallas.py:335", t=t, bound=bnd,
-        err=vjp_err, library=None)
-    log("timing", f"{smi} | lsi_splat_vjp at {TRAIN_SPLAT_SHAPE} -> "
-        f"{OUT_HW}: {1e3 * t['kernel']:.1f} us/call {readings['kernel']}, "
-        f"plain (autograd through splat_bilinear) {1e3 * t['plain']:.1f} "
-        f"us/call {readings['plain']}; bound {1e3 * bnd[0]:.1f} us "
-        f"({bnd[1]})")
+        err=max(vjp_err, err), library=None)
     del s_in, s_cot
+    _, _, err = time_vjp("on the b16 kitti_ldi3_b16 step's own inputs", smi,
+                         *train_calls["splat_vjp"][0])
+    kernels["splat_vjp"]["err"] = max(kernels["splat_vjp"]["err"], err)
 
     # The gather and its yardstick, F.grid_sample (bilinear, zeros,
     # align_corners=True) on [image, 1], which gives sampled and valid: at
@@ -2121,13 +2643,19 @@ def main() -> None:
         "on the b16 kitti_ldi3_b16 step's own inputs", smi,
         *train_calls["gather_fwd"][0])
     kernels["gather_fwd"]["err"] = max(fwd_err, err)
-    del train_calls
     t, bnd, err, lib_bwd = time_gather_bwd(
         "at random +-40 px", smi, image, gcoords,
         torch.Generator(device=dev).manual_seed(8))
     kernels["gather_bwd_coords"] = dict(
         replaces="lsi_tpu/kernels/gather_pallas.py:104", t=t, bound=bnd,
         err=max(bwd_err, err), library=lib_bwd)
+    own = train_calls["gather_bwd_coords"][0]
+    _, _, err, _ = time_gather_bwd(
+        "on the b16 kitti_ldi3_b16 step's own inputs and cotangents", smi,
+        own[0], own[1], None, cot=own[2:])
+    kernels["gather_bwd_coords"]["err"] = max(
+        kernels["gather_bwd_coords"]["err"], err)
+    del train_calls, own
 
     del image, gcoords, g_in, g_cot
 
@@ -2142,7 +2670,7 @@ def main() -> None:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO / "_scratch"))
     try:
         reset_counts()
-        summary = quality_run(dev, workdir)
+        summary, online_host, online_rates = quality_run(dev, workdir)
         quality_counts = counts()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2212,9 +2740,31 @@ def main() -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    # 23-25: training from shards and from dataset layouts, the sweep.
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_",
+                                    dir=REPO / "_scratch"))
+    try:
+        torch.cuda.empty_cache()
+        reset_counts()
+        log("shards", shards_phase(dev, smi, workdir, online_host,
+                                   online_rates))
+        shard_counts = counts()
+        dataset_counts, errs = datasets_phase(dev, smi, workdir)
+        max_err = max(max_err, errs["splat_fwd"])
+        for name in ("splat_vjp", "gather_fwd", "gather_bwd_coords"):
+            kernels[name]["err"] = max(kernels[name]["err"], errs[name])
+        trajectory_counts = trajectory_phase(dev, smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for name, c in (("shards", shard_counts), ("datasets", dataset_counts)):
+        missing = [k for k in KERNELS if c[k] == 0]
+        if missing:
+            fail(f"{missing} not launched by the {name} phase")
+
     total = {name: serve_counts[name] + train_counts[name]
              + quality_counts[name] + mpi_counts[name] + option_counts[name]
-             + dp_counts[name] for name in KERNELS}
+             + dp_counts[name] + shard_counts[name] + dataset_counts[name]
+             + trajectory_counts[name] for name in KERNELS}
     total.update(window_counts)
     entries = [{
         "name": "splat_fwd", "route": "cuda",

@@ -39,8 +39,8 @@ class RenderConfig:
     zbuffer_scale: float = 50.0
     splat_method: str = "scatter"   # the port takes only "scatter".
     use_pallas: str = "auto"        # TPU-only; the port takes only "auto".
-    pallas_max_dy: int = 2          # no effect in the port (exact splat).
-    window_check: bool = True       # no effect in the port (exact splat).
+    pallas_max_dy: int = 2          # the trajectory's window check only.
+    window_check: bool = True       # the trajectory's window check only.
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,1 +1,2 @@
-"""Input data: the synthetic scenes and the batch stream."""
+"""Input data: synthetic scenes, materialized shards, the KITTI and
+SYNTHIA readers, and the batch stream with its prefetch thread."""

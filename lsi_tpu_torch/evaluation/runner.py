@@ -14,8 +14,10 @@ PNG.
     python -m lsi_tpu_torch.evaluation.runner --config=kitti_ldi3_quality \
         --set train.checkpoint_dir=/path/to/run --num_batches 16
 
-Not ported yet: ``--trajectory_gif`` (ROADMAP Queue 1: M10's
-``trajectory`` and ``video``).
+With ``--trajectory_gif PATH`` (LDI family) the first source image of
+the configured data stream is also rendered to a 60-view sweep
+(``trajectory.render_trajectory``) and written as a GIF (``video.save_gif``,
+PIL).
 """
 
 from __future__ import annotations
@@ -23,18 +25,17 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import struct
-import zlib
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from lsi_tpu_torch.api import resolve_device
+from lsi_tpu_torch.device import resolve_device
 from lsi_tpu_torch.config import PRESETS, Config, DataConfig, build_config
-from lsi_tpu_torch.data.pipeline import Batch, batch_stream, decode_batch
+from lsi_tpu_torch.data.pipeline import Batch, decode_batch, make_dataset
 from lsi_tpu_torch.evaluation.metrics import depth_metrics, psnr, ssim
 from lsi_tpu_torch.evaluation.occlusion import occlusion_metrics
+from lsi_tpu_torch.evaluation.png import write_png
 from lsi_tpu_torch.geometry.ldi import render_forward
 from lsi_tpu_torch.models import build_model
 from lsi_tpu_torch.models.mpi import MPI, mpi_source_disparity, render_mpi
@@ -116,34 +117,38 @@ def evaluate(cfg: Config, net: torch.nn.Module, num_batches: int = 16,
              device="cuda") -> Dict[str, float]:
     """Average the eval metrics over ``num_batches`` held-out batches."""
     eval_step = build_eval_step(cfg)
-    it = batch_stream(eval_data_config(cfg.data), seed=seed, device=device)
+    it = make_dataset(eval_data_config(cfg.data), seed=seed, device=device)
     sums: Dict[str, float] = {}
-    for i in range(num_batches):
-        batch = next(it)
-        metrics, rendered, pred = eval_step(net, batch)
-        for k, v in to_floats(metrics).items():
-            sums[k] = sums.get(k, 0.0) + v
-        if image_dir is not None and i == 0:
-            export_image_grid(batch, rendered, pred, image_dir)
+    try:
+        for i in range(num_batches):
+            batch = next(it)
+            metrics, rendered, pred = eval_step(net, batch)
+            for k, v in to_floats(metrics).items():
+                sums[k] = sums.get(k, 0.0) + v
+            if image_dir is not None and i == 0:
+                export_image_grid(batch, rendered, pred, image_dir)
+    finally:
+        it.close()
     return {k: v / num_batches for k, v in sums.items()}
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG (zlib and struct
-    from the standard library; no image package needed)."""
-    h, w, _ = rgb.shape
+@torch.no_grad()
+def trajectory_frames(cfg: Config, net: torch.nn.Module,
+                      device="cuda") -> torch.Tensor:
+    """The runner's sweep: the LDI of the first source image of
+    ``cfg.data``'s stream (seed 1) rendered to 60 views, ±0.15 m across
+    and ±0.01 rad about the optical axis; (60, 1, H, W, 3)."""
+    from lsi_tpu_torch.evaluation.trajectory import render_trajectory
 
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    raw = b"".join(b"\x00" + row.tobytes()
-                   for row in np.ascontiguousarray(rgb, np.uint8))
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6))
-                + chunk(b"IEND", b""))
+    it = make_dataset(cfg.data, seed=1, repeat=True, device=device)
+    try:
+        batch = decode_batch(next(it))
+    finally:
+        it.close()
+    ldi = net(batch.src_image[:1], batch.intrinsics[:1])
+    return render_trajectory(ldi, 60, max_translation=(0.15, 0.0, 0.0),
+                             max_rotation=(0.0, 0.0, 0.01),
+                             render_cfg=cfg.render)
 
 
 def _pred_disparity(pred) -> torch.Tensor:
@@ -186,6 +191,9 @@ def main(argv=None) -> Dict[str, float]:
     ap.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE")
     ap.add_argument("--num_batches", type=int, default=16)
     ap.add_argument("--image_dir", default="")
+    ap.add_argument("--trajectory_gif", default="",
+                    help="also render a 60-view sweep of the data stream's "
+                         "first image to this GIF path (needs PIL)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: the card unless 'cpu' is asked for")
     args = ap.parse_args(argv)
@@ -208,6 +216,14 @@ def main(argv=None) -> Dict[str, float]:
                        device=device)
     for k, v in sorted(results.items()):
         print(f"{k}: {v:.4f}")
+
+    if args.trajectory_gif and cfg.model.family != "ldi":
+        print("trajectory gif: LDI-family only; skipping")
+    elif args.trajectory_gif:
+        from lsi_tpu_torch.evaluation.video import save_gif
+
+        frames = trajectory_frames(cfg, net, device)
+        print(f"trajectory gif: {save_gif(frames, args.trajectory_gif)}")
     return results
 
 

@@ -27,6 +27,7 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from lsi_tpu_torch.device import resolve_device
 from lsi_tpu_torch.parallel.mesh import destroy, make_process_plan
 
 #: Seconds a spawned run may take, and a collective may wait, by default.
@@ -48,11 +49,14 @@ def _child(fn, rank, world_size, init_file, kw, args, results):
 
 
 def spawn(fn: Callable, world_size: int, *args, init_file,
-          device="cpu", backend="gloo", space: int = 1,
+          device="cuda", backend="gloo", space: int = 1,
           timeout_s: float = DEFAULT_TIMEOUT_S) -> List:
     """``[fn(plan_r, *args) for r in range(world_size)]``, each on its own
     spawned rank; raises RuntimeError if a rank fails, dies or is not done
-    within ``timeout_s`` (which also bounds each collective)."""
+    within ``timeout_s`` (which also bounds each collective). The ranks
+    run on the card unless ``device="cpu"`` is asked for; with no CUDA
+    device the call raises before it starts a process."""
+    device = str(resolve_device(device))
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     kw = dict(device=device, backend=backend, space=space,

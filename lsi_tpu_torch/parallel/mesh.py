@@ -35,7 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from lsi_tpu_torch.api import resolve_device
+from lsi_tpu_torch.device import resolve_device
 from lsi_tpu_torch.parallel.reduce import all_reduce
 
 DATA_AXIS = "data"

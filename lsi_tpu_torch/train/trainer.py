@@ -53,9 +53,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from lsi_tpu_torch.api import check_render_config, resolve_device
+from lsi_tpu_torch.api import check_render_config
 from lsi_tpu_torch.config import Config
-from lsi_tpu_torch.data.pipeline import Batch, batch_stream, decode_batch
+from lsi_tpu_torch.data.pipeline import Batch, decode_batch, make_dataset
+from lsi_tpu_torch.device import resolve_device
 from lsi_tpu_torch.evaluation.runner import (build_eval_step,
                                              eval_data_config,
                                              export_image_grid, to_floats)
@@ -492,7 +493,8 @@ class Trainer:
         cfg = self.config
         if self._eval_step is None:
             self._eval_step = build_eval_step(cfg)
-            self._eval_iter = batch_stream(eval_data_config(cfg.data),
+        if self._eval_iter is None:
+            self._eval_iter = make_dataset(eval_data_config(cfg.data),
                                            seed=cfg.train.seed + 1,
                                            device=self.device)
         n = max(1, cfg.train.eval_batches)
@@ -608,8 +610,9 @@ class Trainer:
                     print(f"[train] fresh start: removed stale {name} from "
                           f"{t.checkpoint_dir}", flush=True)
             self._drift_seeded = True
-        if data_iter is None:
-            data_iter = batch_stream(
+        own_data = data_iter is None
+        if own_data:
+            data_iter = make_dataset(
                 cfg.data, seed=t.seed, device=self.device,
                 examples=None if self.plan is None else batch_slice(
                     cfg.data.batch_size, self.plan))
@@ -664,6 +667,11 @@ class Trainer:
                                      or step + 1 == max_steps):
                     self.ckpt.save(step + 1, state)
         finally:
+            if own_data:
+                data_iter.close()
+            if self._eval_iter is not None:
+                self._eval_iter.close()
+                self._eval_iter = None
             if profiler is not None:
                 profiler.stop()
                 os.makedirs(t.profile_dir, exist_ok=True)

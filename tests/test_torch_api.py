@@ -157,8 +157,8 @@ def test_init_checks_image_size():
 
 
 def test_entry_points_default_to_cuda(tmp_path):
-    """Without ``device`` the model goes to the card; with no card that
-    raises instead of running on the CPU."""
+    """Without ``device`` the model and spawned ranks go to the card; with
+    no card that raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises((AssertionError, RuntimeError)):
@@ -167,6 +167,10 @@ def test_entry_points_default_to_cuda(tmp_path):
     tapi.LSIModel.init(0, toy_config(tconfig), H, W, device="cpu").save(path)
     with pytest.raises((AssertionError, RuntimeError)):
         tapi.LSIModel.load(path)
+    from lsi_tpu_torch.parallel import launch
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.spawn(launch.spatial_render, 2,
+                     init_file=str(tmp_path / "store"))
 
 
 def test_port_never_imports_jax():
@@ -174,8 +178,11 @@ def test_port_never_imports_jax():
     step of a toy kitti_ldi3_b16, and trains a toy kitti_ldi3_quality and
     a toy mpi_baseline for one step each through the training CLI (the
     first with ``--dist_backend``) and scores them through the eval CLI,
-    and renders height-sharded over two spawned gloo ranks (the parallel
-    modules), all through the port, with neither JAX nor any module of the
+    renders height-sharded over two spawned gloo ranks (the parallel
+    modules), writes shards through the materialize CLI, trains a step
+    each from generated KITTI and SYNTHIA layouts through the native
+    loader, and writes a trajectory GIF through the eval CLI from the
+    shards, all through the port, with neither JAX nor any module of the
     JAX package loaded."""
     code = textwrap.dedent("""
         import dataclasses
@@ -248,8 +255,45 @@ def test_port_never_imports_jax():
             arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
             pose = translation_pose([[-0.1, 0.0, 0.0]]).numpy()
             out = launch.spawn(launch.spatial_render, 2, arrays, pose, 50.0,
-                               1, init_file=d + "/store", space=2)
+                               1, init_file=d + "/store", device="cpu",
+                               space=2)
             assert [o["rgb"].shape for o in out] == [(1, 8, 32, 3)] * 2
+        import lsi_tpu_torch.data.kitti_oxts
+        import lsi_tpu_torch.data.splits
+        import lsi_tpu_torch.device
+        import lsi_tpu_torch.evaluation.png
+        from lsi_tpu_torch import native
+        from lsi_tpu_torch.data import kitti, layouts, synthia
+        from lsi_tpu_torch.data.materialize import main as materialize_main
+        with tempfile.TemporaryDirectory() as d:
+            materialize_main(["--out", d + "/shards", "--count", "4",
+                              "--height", "16", "--width", "32",
+                              "--workers", "1"])
+            layouts.write_kitti_raw(d + "/kitti", drives=2, frames=2,
+                                    hw=(24, 80))
+            layouts.write_synthia_seqs(d + "/synthia", frames=2, hw=(24, 40))
+            sets = ["model.base_filters=8", "model.num_scales=2",
+                    "data.height=16", "data.width=32", "data.batch_size=2",
+                    "train.max_steps=1", "train.eval_every=1",
+                    "train.eval_batches=1", "train.freeze_layer0_step=1",
+                    "loss.consistency_start_step=0",
+                    f"train.checkpoint_dir={d}/ckpt"]
+            state, _ = train_main(["--config=kitti_ldi3_quality", "--device",
+                                   "cpu", "--set", *sets,
+                                   f"data.root={d}/kitti"])
+            assert state.step == 1 and native.available()
+            state, _ = train_main(["--config=synthia_ldi2_splat", "--device",
+                                   "cpu", "--set", *sets[:-4],
+                                   f"data.root={d}/synthia",
+                                   f"train.checkpoint_dir={d}/s"])
+            assert state.step == 1
+            assert kitti.DECODED["native"] > 0
+            assert synthia.DECODED["native_depth16"] > 0
+            eval_main(["--config=trajectory_sweep", "--device", "cpu",
+                       "--num_batches", "1", "--trajectory_gif",
+                       d + "/sweep.gif", "--set", *sets[:5],
+                       "data.dataset=synthetic", f"data.root={d}/shards",
+                       f"train.checkpoint_dir={d}/none"])
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "lsi_tpu"))
         assert not bad, bad

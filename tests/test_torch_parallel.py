@@ -170,7 +170,7 @@ def runs(tmp_path_factory):
     with concurrent.futures.ThreadPoolExecutor(len(CONFIGS)) as pool:
         ranks = {name: pool.submit(
             launch.spawn, launch.train_steps, 2, cfg, params, batches,
-            init_file=tmp_path_factory.mktemp(name) / "store")
+            init_file=tmp_path_factory.mktemp(name) / "store", device="cpu")
             for name, (cfg, params, batches, _) in inputs.items()}
         one = {name: one_process(cfg, params, batches)
                for name, (cfg, params, batches, _) in inputs.items()}
@@ -287,11 +287,13 @@ def trainer_runs(tmp_path_factory):
     one = ttrainer.Trainer(toy_trainer_config(one_dir), device="cpu").train()
     cfg = toy_trainer_config(two_dir)
     first = launch.spawn(launch.trainer_run, 2, cfg,
-                         init_file=tmp_path_factory.mktemp("s1") / "store")
+                         init_file=tmp_path_factory.mktemp("s1") / "store",
+                         device="cpu")
     files = listing(two_dir)
     lines = jsonl(two_dir)
     resumed = launch.spawn(launch.trainer_run, 2, cfg, 8,
-                           init_file=tmp_path_factory.mktemp("s2") / "store")
+                           init_file=tmp_path_factory.mktemp("s2") / "store",
+                           device="cpu")
     return dict(one=one, one_dir=one_dir, first=first, files=files,
                 lines=lines, resumed=resumed, two_dir=two_dir)
 

@@ -160,7 +160,8 @@ def grids(tmp_path_factory):
         ranks = {grid: pool.submit(
             launch.spawn, launch.spatial_renders, grid[0] * grid[1], args,
             init_file=tmp_path_factory.mktemp("store") / "store",
-            space=grid[1]) for grid, (_, args) in spawns.items()}
+            device="cpu", space=grid[1])
+            for grid, (_, args) in spawns.items()}
         ranks = {grid: f.result() for grid, f in ranks.items()}
     return {grid: {name: (jax_res[grid, name][0],
                           [r[i] for r in ranks[grid]],

@@ -431,8 +431,19 @@ def test_decode_batch_matches_jax(rng):
 
 
 def test_unported_data_raises():
+    """The datasets read from disk raise where JAX's raise: a KITTI or
+    SYNTHIA root with no records, a shard root with no shards
+    (FileNotFoundError); an unknown dataset (ValueError)."""
     cfg = toy_config(get_config).data
-    for change in ({"dataset": "kitti"}, {"root": "/data"}):
-        with pytest.raises(NotImplementedError):
+    jcfg = toy_config(j_get_config).data
+    for change in ({"dataset": "kitti"}, {"dataset": "synthia"},
+                   {"root": "/nonexistent"}):
+        with pytest.raises(FileNotFoundError):
+            next(jpipe._batch_stream(dataclasses.replace(jcfg, **change),
+                                     0, True))
+        with pytest.raises(FileNotFoundError):
             next(tpipe.batch_stream(dataclasses.replace(cfg, **change),
                                     device="cpu"))
+    with pytest.raises(ValueError, match="unknown dataset"):
+        next(tpipe.batch_stream(dataclasses.replace(cfg, dataset="nope"),
+                                device="cpu"))

@@ -286,6 +286,22 @@ def test_fresh_start_drops_another_runs_artifacts(tmp_path):
     assert not (tmp_path / "best_params.json").exists()
 
 
+def test_trainer_closes_its_streams(tmp_path, monkeypatch):
+    """train() stops the threads of both its streams, the training one
+    and the eval one, on its way out."""
+    made, make = [], ttrainer.make_dataset
+
+    def recorded(*args, **kwargs):
+        made.append(make(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(ttrainer, "make_dataset", recorded)
+    cfg = small_cfg(tmp_path, max_steps=2, freeze_layer0_step=4)
+    _, metrics = ttrainer.Trainer(cfg, device="cpu").train()
+    assert "eval_abs_rel" in metrics and len(made) == 2
+    assert not any(p._thread.is_alive() for p in made)
+
+
 def test_nan_loss_halts_and_dumps_outside_the_checkpoints(tmp_path,
                                                           monkeypatch):
     cfg = small_cfg(tmp_path, max_steps=3, eval_every=0,
