@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's serving path, its training step, its
 training CLI (the quality recipe), the MPI baseline, the multi-process
 paths (the height-sharded render, data-parallel training), training from
-disk (materialized shards, KITTI and SYNTHIA layouts) and the trajectory
-sweep once on one NVIDIA GPU.
+disk (materialized shards, KITTI and SYNTHIA layouts), the trajectory
+sweep, the high-resolution preset, the LDI-vs-planes comparison and the
+collapse rollback once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -160,15 +161,45 @@ measure no multi-GPU scaling.
              decoded by the standard library); one chunk of 8 poses
              against 8 single-pose renders within 1e-5; the sweep's ms
              and frames/s.
+26. highres-serve — highres_b64 (BASELINE.md config 4: L=2,
+             base_filters=32, num_scales=5, bf16) at 512x1536, random
+             weights from a seed: 4 requests of batch 64 through
+             LSIModel.predict_ldi -> LSIModel.render, one K1 launch each
+             at (64, 1024, 1536, 4) -> (512, 1536); predict, render and
+             end-to-end ms and frames/s after warm-up; peak memory.
+27. highres-train — the remat step of a toy highres_b64 (float32, TF32
+             off) against JAX's jax.checkpoint step in
+             tests/data/torch_golden_remat_toy.npz; the b64 step
+             through make_train_step on a KITTI batch read at 512x1536
+             from phase 24's layout, first without remat as a probe (an
+             OutOfMemoryError is printed as its reading), then with remat
+             (ms, steps/s, peak memory of each, with nothing else held);
+             both first steps' metrics, from one state, within
+             REMAT_RTOL of each other; 3 steps through the training CLI
+             (--config=highres_b64, its own dataset) with an eval against
+             the LiDAR ground truth and a checkpoint; K1 and
+             lsi_splat_vjp on the b64 step's own inputs and cotangents
+             against their plain versions per chunk of 8 images (phases 3
+             and 7's tolerances, the VJP with phase 24's rounding slack),
+             timed beside their bounds.
+28. compare, rollback — python -m lsi_tpu_torch.evaluation.compare at the
+             presets' widths (synthetic_sanity, mpi_baseline), 3 steps
+             each, one table whose rows are the evaluations on the same 8
+             held-out batches; then kitti_ldi3_quality at its widths from
+             phase 23's shards with the collapse rollback on and a
+             collapse forced at step 4: every parameter bitwise the best
+             export's, a fresh optimizer, the checkpoint taken at once.
 
 The line before the last two is {"kernels": [...]}, then the card's name
 and power limit as nvidia-smi prints them, and last
 {"ok": true, "device": {...}}. Each kernel's ``launches`` counts the
-main paths (phases 5, 10, 13, 16, 17, 21's bf16 steps, 23, 24 and 25,
-each counted from 0); the windowed modes' count phase 20's ranks. Every
-entry's ``ms`` and ``plain_ms`` are CUDA-event time per call (host work
-in the wrapper included); the windowed entries also carry ``device_ms``,
-the kernel alone by torch.profiler.
+main paths (phases 5, 10, 13, 16, 17, 21's bf16 steps, 23, 24, 25, 26,
+27 (less the probe without remat) and 28, each counted from 0); the
+windowed modes' count phase 20's ranks, the highres entries phases 26 and
+27's. Every entry's ``ms`` and ``plain_ms`` are CUDA-event time per call
+(host work in the wrapper included; the highres entries' plain versions
+run chunk by chunk); the windowed entries also carry ``device_ms``, the
+kernel alone by torch.profiler.
 """
 
 from __future__ import annotations
@@ -176,6 +207,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -220,6 +252,7 @@ GOLDEN = REPO / "tests" / "data" / "torch_golden_toy.npz"
 GOLDEN_TRAIN = REPO / "tests" / "data" / "torch_golden_train_toy.npz"
 GOLDEN_QUALITY = REPO / "tests" / "data" / "torch_golden_quality_toy.npz"
 GOLDEN_MPI = REPO / "tests" / "data" / "torch_golden_mpi_toy.npz"
+GOLDEN_REMAT = REPO / "tests" / "data" / "torch_golden_remat_toy.npz"
 
 # K1 vs plain: both sum float32 atomics, in an order that changes from run
 # to run, so they agree to float32 rounding of the sums, not bitwise.
@@ -386,6 +419,38 @@ SPLAT_STEP = {"splat_fwd": 1, "splat_vjp": 1, "gather_fwd": 0,
 # launch each; a chunk against single renders as K1 against plain.
 TRAJECTORY_CHUNKS = 8
 TRAJECTORY_ATOL = 1e-5
+
+# The high-resolution preset (phases 26-27): highres_b64 (BASELINE.md
+# config 4) at 512x1536, b64, bf16, L=2. A render splats the LDI
+# (64, 1024, 1536, 4) into (64, 512, 1536): one K1 launch; a training step
+# (photo_mode="splat", remat) launches K1 and lsi_splat_vjp once each
+# (SPLAT_STEP), a KITTI eval batch K1 once. The plain VJP of all 64 images
+# does not fit beside its autograd graph, so both kernels are held to
+# their plain versions per chunk of images: the splat is per image, so
+# that is the same comparison.
+HIGHRES_REQUESTS = 4
+HIGHRES_CHUNK = 8
+HIGHRES_CLI_STEPS = 3
+# The b64 step with and without remat, from one state on one batch (cuDNN
+# deterministic): every first-step metric, grad_norm included, within
+# REMAT_RTOL of the other's, relative to the larger of its magnitude and
+# REMAT_FLOOR. PR 8's runs read total and grad_norm equal to 5 digits
+# (grad_norm 1.27236 against 1.27237, 1.47878 against 1.47878); a
+# recompute in another precision moves them at bf16's 3.9e-3.
+REMAT_RTOL, REMAT_FLOOR = 1e-4, 1e-6
+# The comparison (phase 28): synthetic_sanity and mpi_baseline at their
+# widths, a few steps each.
+COMPARE_STEPS = 3
+# The rollback (phase 28): kitti_ldi3_quality at its widths from phase
+# 23's shards, no freeze, warm-up to step 2, evals after steps 2 and 4;
+# the one after step 4 reads abs_rel 1 higher than it is.
+ROLLBACK_SETS = ["data.dataset=synthetic", "train.max_steps=4",
+                 "loss.consistency_start_step=2", "train.eval_every=2",
+                 "train.eval_batches=1", "train.freeze_layer0_step=0",
+                 "train.freeze_layer0_from_best=false",
+                 "train.checkpoint_every=100", "train.log_every=1",
+                 "train.collapse_rollback_threshold=0.05"]
+ROLLBACK_COLLAPSE = (4, 1.0)
 
 # H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -604,6 +669,16 @@ def with_tf32_off(fn):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = old
+
+
+def with_cudnn_deterministic(fn):
+    cudnn = torch.backends.cudnn
+    old = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        return fn()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = old
 
 
 class Recorded:
@@ -857,8 +932,16 @@ def golden_serve(dev) -> dict:
 
 def golden_train(dev, path=GOLDEN_TRAIN, label="golden-train") -> str:
     """Three steps of a toy config on the card against the JAX numbers in
-    ``path`` (the toy kitti_ldi3_b16, or the toy mpi_baseline); returns
-    the summary for the log line."""
+    ``path`` (the toy kitti_ldi3_b16, the toy mpi_baseline, or the toy
+    highres_b64 with remat); returns the summary for the log line.
+
+    A fixture with ``step1_ldi`` (the remat one) holds the step-1
+    gradient in its two halves, as tests/test_torch_remat.py does: the
+    loss's gradient at JAX's LDI, and the network's backward of JAX's LDI
+    cotangent against JAX's (``step1_net_vjp``); its grad_norm is held
+    from step 2 on. End to end, one projected coordinate at the image's
+    right edge falls on the other side of it in the two frameworks, where
+    the splat's gradient jumps (ROADMAP H10)."""
     with np.load(path) as g:
         golden = {k: g[k] for k in g.files}
 
@@ -875,9 +958,15 @@ def golden_train(dev, path=GOLDEN_TRAIN, label="golden-train") -> str:
                         for k, v in section(f"batch{i}/").items()})
                for i in range(3)]
 
-    grads = loss_and_grads(state, batches[0], cfg)[1]
+    halves = "step1_ldi/textures" in golden
+    if halves:
+        grads, want_key, ldi_err = step1_halves(state, batches[0], cfg,
+                                                section, dev, label)
+    else:
+        grads = loss_and_grads(state, batches[0], cfg)[1]
+        want_key = "step1_grads/"
     want = {k: v.to(dev)
-            for k, v in state_dict_from_jax(section("step1_grads/"),
+            for k, v in state_dict_from_jax(section(want_key),
                                             cfg.model).items()}
     g_max = max(v.abs().max().item() for v in want.values())
     g_err = max(check_close(f"{label} grad {k}", grads[k], want[k], 0.0,
@@ -889,6 +978,8 @@ def golden_train(dev, path=GOLDEN_TRAIN, label="golden-train") -> str:
     for i, batch in enumerate(batches):
         state, metrics = step(state, batch)
         for k, v in metrics_want.items():
+            if halves and i == 0 and k == "grad_norm":
+                continue
             rtol = (TRAIN_NORM_RTOL if k == "grad_norm" else
                     TRAIN_LOSS_RTOL)[i]
             got, ref = float(metrics[k]), float(v[i])
@@ -915,12 +1006,46 @@ def golden_train(dev, path=GOLDEN_TRAIN, label="golden-train") -> str:
     if mean_ratio > TRAIN_PARAM_MEAN or cosine < TRAIN_PARAM_COS:
         fail(f"{label} params: mean diff / mean move {mean_ratio:.3f}, "
              f"cosine {cosine:.4f}")
-    return (f"step-1 grads max abs err {g_err:.3e} (max |grad| {g_max:.3e}); "
+    return ((f"step-1 loss gradient at JAX's LDI max abs err {ldi_err:.3e}; "
+             "the network's backward of JAX's LDI cotangent " if halves
+             else "step-1 grads ")
+            + f"max abs err {g_err:.3e} (max |grad| {g_max:.3e}); "
             "max rel err over 3 steps "
             + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items()))
             + f"; params after 3 steps: max diff "
             f"{diff.abs().max().item():.3e}, mean diff / mean move "
             f"{mean_ratio:.4f}, cosine {cosine:.5f}")
+
+
+def step1_halves(state, batch, cfg, section, dev, label):
+    """The step-1 gradient of a remat fixture in its two halves: the
+    loss's gradient at JAX's LDI against JAX's (TRAIN_GRAD_ATOL_OF_MAX of
+    the largest), then the (checkpointed) network's backward of JAX's LDI
+    cotangent. Returns that backward by parameter name, the key of JAX's
+    and the first half's max abs err."""
+    from lsi_tpu_torch.losses.losses import total_loss
+    b = decode_batch(batch)
+    ldi = {k: torch.from_numpy(v).to(dev).requires_grad_()
+           for k, v in section("step1_ldi/").items()}
+    total = total_loss(LDI(ldi["textures"], ldi["disparities"],
+                           b.intrinsics), b.trg_image, b.pose_src2trg,
+                       cfg.loss, cfg.render, gt_disparity=b.gt_disparity,
+                       gt_valid=b.gt_valid)["total"]
+    total.backward()
+    cot = {k: torch.from_numpy(v).to(dev)
+           for k, v in section("step1_ldi_grad/").items()}
+    c_max = max(v.abs().max().item() for v in cot.values())
+    ldi_err = max(check_close(f"{label} loss gradient at JAX's LDI {k}",
+                              ldi[k].grad, v, 0.0,
+                              TRAIN_GRAD_ATOL_OF_MAX * c_max)
+                  for k, v in cot.items())
+    params = dict(state.net.named_parameters())
+    pred = trainer_mod.apply_net(state.net, b.src_image, b.intrinsics,
+                                 cfg.train.remat_decoder)
+    grads = torch.autograd.grad((pred.textures, pred.disparities),
+                                list(params.values()),
+                                (cot["textures"], cot["disparities"]))
+    return dict(zip(params, grads)), "step1_net_vjp/", ldi_err
 
 
 def golden_mpi(dev) -> str:
@@ -2003,7 +2128,8 @@ def torchrun_phase(dev, workdir: Path) -> str:
         fail(f"torchrun output:\n{first[-2000:]}\n{second[-2000:]}")
     files = sorted(p.name for p in ckpt.iterdir())
     want = ["best_params.npz", "checkpoint_00000002.pt",
-            "checkpoint_00000003.pt", "eval_images", "train.jsonl"]
+            "checkpoint_00000003.pt", "eval_images", "run_stamp.json",
+            "train.jsonl"]
     if files != want:
         fail(f"torchrun wrote {files}, expected {want}")
     with open(ckpt / "train.jsonl") as f:
@@ -2346,6 +2472,369 @@ def trajectory_phase(dev, smi: str, workdir: Path) -> dict:
         f"({6e4 / sweep_ms:.1f} frames/s, the extreme-pose window check "
         f"included)")
     return sweep
+
+
+# ---------------------------------------------------------------------
+# Phases 26-28: the high-resolution preset (serving and training), the
+# LDI-vs-planes comparison and the collapse rollback.
+
+def highres_images(dev, b: int, h: int, w: int, seed: int):
+    """A request's images, drawn on the card from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand((b, h, w, 3), generator=gen, device=dev)
+
+
+def highres_serve(dev, smi: str):
+    """Phase 26: highres_b64 at its widths, random weights from seed 0:
+    4 requests of batch 64 at 512x1536 through LSIModel.predict_ldi ->
+    LSIModel.render, one K1 launch a render; then predict, render and end
+    to end by CUDA events after warm-up, frames/s and peak memory. Returns
+    the launches."""
+    config = get_config("highres_b64")
+    b, h, w = config.data.batch_size, config.data.height, config.data.width
+    model = LSIModel.init(0, config, h, w, device=dev)
+    poses = [translation_pose([[-0.3, 0.0, 0.0]] * b).to(dev),
+             pose_from_euler([[0.0, 0.03, 0.0]] * b,
+                             [[-0.1, 0.0, 0.0]] * b).to(dev)]
+    cfg_m = config.model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for i in range(HIGHRES_REQUESTS):
+        ldi = model.predict_ldi(highres_images(dev, b, h, w, 10 + i))
+        rgb = model.render(ldi, poses[i % 2])
+        d = ldi.disparities
+        if tuple(rgb.shape) != (b, h, w, 3) or not (
+                torch.isfinite(rgb).all() and torch.isfinite(d).all()
+                and torch.isfinite(ldi.textures).all()):
+            fail(f"highres serve: request {i}: rgb {tuple(rgb.shape)} or "
+                 "non-finite values")
+        if (d.min() < cfg_m.min_disparity - 1e-6
+                or d.max() > cfg_m.max_disparity + 1e-6
+                or (d[:, 1:] > d[:, :-1] + 1e-6).any()):
+            fail("highres serve: LDI disparities out of range or order")
+        del ldi, rgb
+    torch.cuda.synchronize()
+    served = counts()
+    if served != {"splat_fwd": HIGHRES_REQUESTS, "splat_vjp": 0,
+                  "gather_fwd": 0, "gather_bwd_coords": 0}:
+        fail(f"highres serve: {HIGHRES_REQUESTS} renders launched {served}")
+    peak_serve = torch.cuda.max_memory_allocated() / 2**30
+    image = highres_images(dev, b, h, w, 20)
+    ldi = model.predict_ldi(image)
+    t_pred = cuda_ms(lambda: model.predict_ldi(image), iters=3, warmup=1)
+    t_rend = cuda_ms(lambda: model.render(ldi, poses[0]), iters=5)
+    t_e2e = cuda_ms(lambda: model.render(model.predict_ldi(image),
+                                         poses[0]), iters=3, warmup=1)
+    n_params = sum(p.numel() for p in model.net.parameters())
+    log("highres-serve", f"{smi} | highres_b64 ({n_params} params, "
+        f"{cfg_m.compute_dtype}, L={cfg_m.num_layers}) at {b}x{h}x{w}: "
+        f"{HIGHRES_REQUESTS} requests served, K1 launches "
+        f"{served['splat_fwd']} = renders; peak memory of the requests "
+        f"{peak_serve:.2f} GiB; predict {t_pred:.3f} ms "
+        f"({1e3 * b / t_pred:.1f} frames/s), render {t_rend:.3f} ms "
+        f"({1e3 * b / t_rend:.1f} frames/s), end-to-end {t_e2e:.3f} ms "
+        f"({1e3 * b / t_e2e:.1f} frames/s)")
+    del model, ldi, image
+    return served
+
+
+def chunks(n: int):
+    return [slice(i, min(i + HIGHRES_CHUNK, n))
+            for i in range(0, n, HIGHRES_CHUNK)]
+
+
+def hold_k1_chunked(label: str, smi: str, values, coords, weights, out_hw,
+                    snap: bool = True):
+    """K1 on these inputs against the plain splat per chunk of images (the
+    splat is per image, so this is the whole comparison), then timed in
+    turns: K1 on all images at once, the plain splat chunk by chunk.
+    Returns (times, bound, max abs err)."""
+    got = splat_cuda.splat(values, coords, weights, out_hw, snap=snap)
+    refs = [splat_bilinear(values[c], coords[c], weights[c], out_hw,
+                           snap=snap) for c in chunks(values.shape[0])]
+    err = 0.0
+    for i, name in enumerate(("accum", "wsum")):
+        ref = torch.cat([r[i] for r in refs])
+        err = max(err, check_close(f"K1 {label} {name}", got[i], ref,
+                                   SPLAT_RTOL,
+                                   SPLAT_ATOL_OF_MAX * ref.abs().max().item()))
+        del ref
+    del got, refs
+    t, readings = in_turns({
+        "plain": lambda: [splat_bilinear(values[c], coords[c], weights[c],
+                                         out_hw, snap=snap)
+                          for c in chunks(values.shape[0])],
+        "kernel": lambda: splat_cuda.splat(values, coords, weights, out_hw,
+                                           snap=snap)}, iters=3)
+    bnd = k1_bound(values, coords, weights, out_hw)
+    log("timing", f"{smi} | K1 splat {label} {tuple(values.shape)} -> "
+        f"{tuple(out_hw)}: {1e3 * t['kernel']:.1f} us/call "
+        f"{readings['kernel']}, plain index_add_ in chunks of "
+        f"{HIGHRES_CHUNK} images {1e3 * t['plain']:.1f} us/call "
+        f"{readings['plain']}; bound {1e3 * bnd[0]:.1f} us ({bnd[1]}), "
+        f"{100 * bnd[0] / t['kernel']:.0f}% of it; max abs err {err:.3e}")
+    return t, bnd, err
+
+
+def hold_vjp_chunked(label: str, smi: str, values, coords, weights, g_accum,
+                     g_wsum, out_hw):
+    """lsi_splat_vjp on these inputs and cotangents against autograd
+    through the plain splat per chunk of images, at phase 7's tolerances
+    plus the rounding slack of phase 24 (splat_vjp_slack), then timed in
+    turns: the kernel on all images at once, the plain VJP chunk by
+    chunk. Returns (times, bound, max abs err)."""
+    n = values.shape[0]
+    got = splat_cuda.splat_vjp(values, coords, weights, g_accum, g_wsum,
+                               out_hw)
+    refs, slacks = [], []
+    for c in chunks(n):
+        args = (values[c], coords[c], weights[c], g_accum[c], g_wsum[c])
+        refs.append(splat_cuda._plain_vjp(*args, out_hw, (True, True, True)))
+        slacks.append(splat_vjp_slack(*args, out_hw))
+    ref = [torch.cat([r[i] for r in refs]) for i in range(3)]
+    slack = [torch.cat([s[i] for s in slacks]) for i in range(3)]
+    del refs, slacks
+    err = check_vjp(f"lsi_splat_vjp {label}", got, ref, slack)
+    scale = ", ".join(f"{r.abs().max().item():.3e}" for r in ref)
+    del got, ref, slack
+    t, readings = in_turns({
+        "plain": lambda: [splat_cuda._plain_vjp(
+            values[c], coords[c], weights[c], g_accum[c], g_wsum[c], out_hw,
+            (True, True, True)) for c in chunks(n)],
+        "kernel": lambda: splat_cuda.splat_vjp(values, coords, weights,
+                                               g_accum, g_wsum, out_hw)},
+        iters=2)
+    bnd = vjp_bound(values, coords, weights, out_hw)
+    log("timing", f"{smi} | lsi_splat_vjp {label} {tuple(values.shape)} -> "
+        f"{tuple(out_hw)}: {1e3 * t['kernel']:.1f} us/call "
+        f"{readings['kernel']}, plain (autograd through splat_bilinear) in "
+        f"chunks of {HIGHRES_CHUNK} images {1e3 * t['plain']:.1f} us/call; "
+        f"bound {1e3 * bnd[0]:.1f} us ({bnd[1]}), "
+        f"{100 * bnd[0] / t['kernel']:.0f}% of it; max abs err {err:.3e} "
+        f"(rtol {VJP_RTOL}, atol {VJP_ATOL_OF_MAX}*max|ref| plus the "
+        f"rounding slack; max|ref| of d_values, d_coords, d_weights "
+        f"{scale})")
+    return t, bnd, err
+
+
+def highres_train(dev, smi: str, workdir: Path):
+    """Phase 27: the remat golden check; the b64 highres_b64 step with
+    remat through make_train_step on a KITTI batch (ms, steps/s, peak
+    memory), the step without remat as a probe (its OutOfMemoryError, if
+    any, is a reading); 3 steps through the training CLI on the KITTI
+    layout with an eval and a checkpoint; K1 and lsi_splat_vjp held and
+    timed on the step's own recorded inputs and cotangents. Returns the
+    launches of the main path and the two kernels' readings."""
+    summary = with_tf32_off(lambda: golden_train(dev, GOLDEN_REMAT,
+                                                 "golden-remat"))
+    log("golden-remat", "toy highres_b64 with remat (2x32x96, float32, "
+        "TF32 off) on CUDA vs JAX's jax.checkpoint step (CPU): " + summary)
+
+    kitti_root = workdir / "kitti"
+    cfg = build_config("highres_b64", [f"data.root={kitti_root}"])
+    b, h, w = cfg.data.batch_size, cfg.data.height, cfg.data.width
+    it = make_dataset(cfg.data, seed=0, device=dev)
+    try:
+        batch, t_batch = host_seconds(lambda: next(it))
+    finally:
+        it.close()
+    launched = {k: 0 for k in KERNELS}
+
+    def add(c):
+        for k in launched:
+            launched[k] += c[k]
+
+    # The probe without remat runs first, so that each peak counts the
+    # step alone (and the batch): the remat step's recorded inputs are
+    # held only after both readings.
+    readings, first_metrics = {}, {}
+    for remat in (False, True):
+        c = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                  remat_decoder=remat))
+        state = create_state(c, seed=0, device=dev)
+        step = make_train_step(c)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        oom = None
+        try:
+            # The first step, whose metrics the two settings compare, with
+            # deterministic cuDNN algorithms; the timed steps and their
+            # peak with the defaults.
+            (state, metrics), first = host_seconds(
+                lambda: with_cudnn_deterministic(lambda: step(state, batch)))
+            per_step = counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: step(state, batch), iters=3, warmup=0)
+        except torch.OutOfMemoryError as e:
+            if remat:
+                raise
+            oom = str(e).splitlines()[0][:200]
+        if oom is not None:
+            # The probe is a reading; the traceback that held its tensors
+            # is gone here.
+            readings[remat] = (f"OutOfMemoryError at a peak of "
+                               f"{torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                               f" GiB: {oom}")
+            del state, step
+            torch.cuda.empty_cache()
+            continue
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        m = {k: float(v) for k, v in metrics.items()}
+        if per_step != SPLAT_STEP or not all(np.isfinite(v)
+                                             for v in m.values()):
+            fail(f"highres step (remat {remat}): launches {per_step}, "
+                 f"metrics {m}")
+        first_metrics[remat] = m
+        readings[remat] = (f"first step {first:.2f} s (cuDNN "
+                           f"deterministic), then {ms:.1f} ms a "
+                           f"step ({1e3 / ms:.3f} steps/s, "
+                           f"{1e3 * b / ms:.1f} examples/s), peak memory "
+                           f"{peak:.2f} GiB; total {m['total']:.7g}, "
+                           f"grad_norm {m['grad_norm']:.7g}")
+        if remat:
+            add(counts())
+            with recording() as calls:
+                step(state, batch)
+            calls = first_calls(calls)
+            if [len(calls[k]) for k in KERNELS] != [1, 1, 0, 0]:
+                fail(f"highres: one step recorded "
+                     f"{ {k: len(v) for k, v in calls.items()} } launches")
+        del state, step
+        torch.cuda.empty_cache()
+    del batch
+    log("highres-train", f"{smi} | highres_b64 at {b}x{h}x{w} "
+        f"({cfg.model.compute_dtype}, photo_mode={cfg.loss.photo_mode}) on "
+        f"a KITTI batch (made in {t_batch:.2f} s), launches per step "
+        f"{SPLAT_STEP}: with remat {readings[True]}; without remat (a "
+        f"probe, run first) {readings[False]}")
+    # Remat recomputes the forward in the backward: from the same state on
+    # the same batch the first step's metrics must agree.
+    if False in first_metrics:
+        m0, m1 = first_metrics[False], first_metrics[True]
+        rel = {k: abs(m1[k] - m0[k]) / max(abs(m0[k]), REMAT_FLOOR)
+               for k in m0}
+        if set(m0) != set(m1) or max(rel.values()) > REMAT_RTOL:
+            fail(f"highres: the remat step's first metrics {m1} vs the "
+                 f"step without remat {m0} (rtol {REMAT_RTOL})")
+        worst = max(rel, key=rel.get)
+        log("highres-train", f"remat vs no remat, first step: every metric "
+            f"within rtol {REMAT_RTOL} (largest {worst}, {rel[worst]:.3e}; "
+            f"grad_norm {m1['grad_norm']:.7g} vs {m0['grad_norm']:.7g})")
+    else:
+        log("highres-train", "remat vs no remat not compared: the probe "
+            "without remat did not fit")
+
+    # The training CLI on the KITTI layout, its own dataset.
+    ckpt = workdir / "highres_run"
+    sets = [f"data.root={kitti_root}",
+            f"train.max_steps={HIGHRES_CLI_STEPS}",
+            f"train.eval_every={HIGHRES_CLI_STEPS}", "train.eval_batches=1",
+            f"train.checkpoint_every={HIGHRES_CLI_STEPS}",
+            "train.log_every=1", f"train.checkpoint_dir={ckpt}"]
+    reset_counts()
+    _, _, host = traced_cli("highres", "highres_b64", sets,
+                            ["full"] * HIGHRES_CLI_STEPS,
+                            {"full": SPLAT_STEP}, (HIGHRES_CLI_STEPS,),
+                            KITTI_EVAL_LAUNCHES, 1)
+    add(counts())
+    with open(ckpt / "train.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    rates = [r["steps_per_sec"] for r in lines if "total" in r]
+    abs_rel = [r["eval_abs_rel"] for r in lines if "eval_abs_rel" in r]
+    if len(abs_rel) != 1 or not np.isfinite(abs_rel[0]) or not (
+            ckpt / f"checkpoint_{HIGHRES_CLI_STEPS:08d}.pt").exists():
+        fail(f"highres CLI: eval_abs_rel {abs_rel}, files "
+             f"{sorted(os.listdir(ckpt))}")
+    log("highres-train", f"highres_b64 through the training CLI on KITTI "
+        f"raw (data.root, no dataset override), {HIGHRES_CLI_STEPS} steps "
+        f"with remat: steps_per_sec {secs(rates)}, the step's wait for its "
+        f"batch {secs(host['data'])} s, step {secs(host['step'])} s, eval "
+        f"{secs(host['eval'])} s (eval_abs_rel against LiDAR "
+        f"{abs_rel[0]:.4f}), checkpoint save {secs(host['save'])} s")
+
+    kernels = {}
+    label = "on the b64 highres_b64 step's own inputs"
+    t, bnd, err = hold_k1_chunked(label, smi, *calls["splat_fwd"][0])
+    kernels["splat_fwd_highres"] = dict(
+        replaces="lsi_tpu/kernels/splat_pallas.py:141", t=t, bound=bnd,
+        err=err, library=None)
+    t, bnd, err = hold_vjp_chunked(label + " and cotangents", smi,
+                                   *calls["splat_vjp"][0])
+    kernels["splat_vjp_highres"] = dict(
+        replaces="lsi_tpu/kernels/splat_pallas.py:335", t=t, bound=bnd,
+        err=err, library=None)
+    return launched, kernels
+
+
+def compare_phase(smi: str) -> None:
+    """Phase 28, first half: python -m lsi_tpu_torch.evaluation.compare at
+    the presets' widths, COMPARE_STEPS steps each, both scored on the same
+    8 held-out batches; the table's rows must be the evaluations'."""
+    from lsi_tpu_torch.evaluation import compare
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results, wall = host_seconds(lambda: compare.main(
+            [str(COMPARE_STEPS)]))
+    text = out.getvalue()
+    table = text[text.index("metric "):].strip()
+    rows = {ln.split()[0]: [float(x) for x in ln.split()[1:]]
+            for ln in table.splitlines()[1:]}
+    for col, (name, _) in enumerate(compare.PRESETS):
+        got = results[name]["metrics"]
+        if not rows or any(abs(rows[k][col] - got[k]) > 5e-5 for k in rows) \
+                or not all(np.isfinite(v) for v in got.values()):
+            fail(f"compare: table {rows} vs {name}'s evaluation {got}")
+    widths = {name: (r["config"].data.height, r["config"].data.width,
+                     r["config"].data.batch_size)
+              for name, r in results.items()}
+    log("compare", f"{smi} | synthetic_sanity and mpi_baseline at their "
+        f"widths {widths}, {COMPARE_STEPS} steps each on two-plane scenes, "
+        f"both evaluated on the same 8 held-out batches, in {wall:.2f} s:\n"
+        + table)
+
+
+def rollback_phase(dev, workdir: Path) -> str:
+    """Phase 28, second half: kitti_ldi3_quality at its widths from phase
+    23's shards, evals every 2 steps with the best export, the rollback on;
+    the eval after step 4 reads abs_rel 1 higher than it is (a forced
+    collapse). Every parameter must come back bitwise from the export of
+    step 2, the optimizer start afresh, and step 4 be checkpointed at
+    once."""
+    from lsi_tpu_torch.train.checkpoint import CheckpointManager
+    ckpt = workdir / "rollback_run"
+    cfg = build_config("kitti_ldi3_quality", ROLLBACK_SETS + [
+        f"data.root={workdir / 'shards'}", f"train.checkpoint_dir={ckpt}"])
+    trainer = trainer_mod.Trainer(cfg, device=dev)
+    launch.force_collapse(trainer, *ROLLBACK_COLLAPSE)
+    state, metrics = trainer.train()
+    meta = read_params_npz_meta(str(ckpt / "best_params.npz"))
+    best = import_params_npz(cfg.model, str(ckpt / "best_params.npz"))
+    kept = all(torch.equal(p.detach().cpu(), best[k])
+               for k, p in state.net.named_parameters())
+    saved = CheckpointManager(str(ckpt)).restore(
+        create_state(cfg, seed=1, device=dev))
+    saved_kept = all(torch.equal(p.detach().cpu(), best[k])
+                     for k, p in saved.net.named_parameters())
+    with open(ckpt / "rollback_state.json") as f:
+        used = json.load(f)["count"]
+    if not (metrics.get("rollback") == 1.0 and meta["step"] == 2 and kept
+            and saved_kept and saved.step == 4 and used == 1
+            and state.opt_state.count == 0
+            and all(not v.any() for v in state.opt_state.mu.values())):
+        fail(f"rollback: metrics {metrics}, export {meta}, params kept "
+             f"{kept}, checkpoint step {saved.step} kept {saved_kept}, "
+             f"budget {used}, optimizer count {state.opt_state.count}")
+    return (f"kitti_ldi3_quality at {cfg.data.height}x{cfg.data.width} "
+            f"b{cfg.data.batch_size} from the shards, collapse forced at "
+            f"step {ROLLBACK_COLLAPSE[0]} (eval_abs_rel_drift "
+            f"{metrics['eval_abs_rel_drift']:.4f}): every parameter bitwise "
+            f"the step-{meta['step']} export's (eval_abs_rel "
+            f"{meta['eval_abs_rel']:.4f}), Adam's moments and count zero, "
+            f"the checkpoint of step 4 written at once and equal, budget "
+            f"{used}/{cfg.train.collapse_max_rollbacks}")
 
 
 def main() -> None:
@@ -2754,18 +3243,39 @@ def main() -> None:
         for name in ("splat_vjp", "gather_fwd", "gather_bwd_coords"):
             kernels[name]["err"] = max(kernels[name]["err"], errs[name])
         trajectory_counts = trajectory_phase(dev, smi, workdir)
+
+        # 26-28: the high-resolution preset, the comparison, the rollback
+        # (on phase 24's KITTI layout and phase 23's shards).
+        torch.cuda.empty_cache()
+        highres_counts = highres_serve(dev, smi)
+        torch.cuda.empty_cache()
+        trained, highres_kernels = highres_train(dev, smi, workdir)
+        highres_counts = {k: highres_counts[k] + trained[k]
+                          for k in KERNELS}
+        kernels.update(highres_kernels)
+        torch.cuda.empty_cache()
+        reset_counts()
+        compare_phase(smi)
+        log("rollback", rollback_phase(dev, workdir))
+        compare_counts = counts()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    for name, c in (("shards", shard_counts), ("datasets", dataset_counts)):
+    for name, c in (("shards", shard_counts), ("datasets", dataset_counts),
+                    ("comparison and rollback", compare_counts)):
         missing = [k for k in KERNELS if c[k] == 0]
         if missing:
             fail(f"{missing} not launched by the {name} phase")
+    if not (highres_counts["splat_fwd"] and highres_counts["splat_vjp"]):
+        fail(f"the highres phases launched {highres_counts}")
 
     total = {name: serve_counts[name] + train_counts[name]
              + quality_counts[name] + mpi_counts[name] + option_counts[name]
              + dp_counts[name] + shard_counts[name] + dataset_counts[name]
-             + trajectory_counts[name] for name in KERNELS}
+             + trajectory_counts[name] + highres_counts[name]
+             + compare_counts[name] for name in KERNELS}
     total.update(window_counts)
+    total["splat_fwd_highres"] = highres_counts["splat_fwd"]
+    total["splat_vjp_highres"] = highres_counts["splat_vjp"]
     entries = [{
         "name": "splat_fwd", "route": "cuda",
         "source": "lsi_tpu_torch/csrc/splat_fwd.cu",
@@ -2778,7 +3288,7 @@ def main() -> None:
         entries.append({
             "name": name, "route": "cuda",
             "source": "lsi_tpu_torch/csrc/" + (
-                "splat_fwd.cu" if name == "splat_fwd_window"
+                "splat_fwd.cu" if name.startswith("splat_fwd")
                 else "splat_bwd.cu"),
             "replaces": k["replaces"], "launches": total[name],
             "max_abs_err": k["err"], "ms": k["t"]["kernel"],

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import multiprocessing as mp
+import os
 import queue
 import time
 import traceback
@@ -248,15 +249,44 @@ def train_steps(plan, cfg, params, batches, collect_grads=True, tf32=True,
             "params": params_after, "launches": launches}
 
 
-def spatial_renders(plan, cases):
-    """:func:`spatial_render` of each argument tuple in ``cases``."""
-    return [spatial_render(plan, *c) for c in cases]
+def force_collapse(trainer, at_step: int, by: float) -> None:
+    """A fault for tests and ``chip_smoke.py``, not for training: make
+    ``trainer``'s eval after step ``at_step`` read its ``abs_rel`` ``by``
+    higher than it is, a forced geometry collapse, the signal the
+    collapse rollback answers. It wraps the public
+    :meth:`~lsi_tpu_torch.train.trainer.Trainer.eval_metrics`, so the
+    drift, the best export and the rollback all see the forced value."""
+    eval_metrics = trainer.eval_metrics
+
+    def run(state, step):
+        out = eval_metrics(state, step)
+        if step == at_step:
+            out["eval_abs_rel"] += by
+        return out
+
+    trainer.eval_metrics = run
 
 
-def trainer_run(plan, cfg, max_steps=None):
-    """``Trainer(cfg, plan=plan).train(max_steps)``: this rank's final step,
-    last metrics and parameters (numpy)."""
+def trainer_run(plan, cfg, max_steps=None, collapse=None):
+    """``Trainer(cfg, plan=plan).train(max_steps)``, with ``collapse``
+    ((step, by): :func:`force_collapse`) forced on rank 0's eval: this
+    rank's final step, last metrics, parameters (numpy) and optimizer
+    count, and rank 0's listing of the checkpoint directory."""
     from lsi_tpu_torch.train.trainer import Trainer
-    state, metrics = Trainer(cfg, plan=plan).train(max_steps)
+    trainer = Trainer(cfg, plan=plan)
+    if collapse is not None:
+        force_collapse(trainer, *collapse)
+    state, metrics = trainer.train(max_steps)
+    d = cfg.train.checkpoint_dir
+    files = sorted(os.path.relpath(os.path.join(root, f), d)
+                   for root, _, names in os.walk(d) for f in names)
     return {"step": state.step, "metrics": metrics,
-            "params": {k: _np(v) for k, v in state.net.state_dict().items()}}
+            "params": {k: _np(v) for k, v in state.net.state_dict().items()},
+            "opt_count": state.opt_state.count,
+            "files": files if plan.is_main else None}
+
+
+def in_turn(plan, calls):
+    """``[fn(plan, *args) for fn, args in calls]``: several programs, one
+    after another, in one spawn."""
+    return [fn(plan, *args) for fn, args in calls]

@@ -202,6 +202,21 @@ def broadcast_params(plan: Optional[ProcessPlan],
             p.copy_(v.view_as(p))
 
 
+def barrier(plan: Optional[ProcessPlan]) -> None:
+    """Wait until every rank has reached this point."""
+    if plan is not None and plan.world_size > 1:
+        dist.barrier()
+
+
+def broadcast_flag(plan: Optional[ProcessPlan], flag: bool) -> bool:
+    """Rank 0's ``flag`` on every rank, in one collective."""
+    if plan is None or plan.world_size == 1:
+        return flag
+    t = torch.tensor([int(flag)], device=plan.device)
+    dist.broadcast(t, src=0)
+    return bool(t.item())
+
+
 def send_recv(plan: ProcessPlan, sends, recvs) -> None:
     """Point-to-point transfers within the space group, all posted before
     any is waited on (so no order of the ranks deadlocks): ``sends`` and

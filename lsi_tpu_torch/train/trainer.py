@@ -34,15 +34,18 @@ ranks' gradients are summed before the
 optimizer, so the clip, the finiteness test and the schedule see the
 global batch's gradient and every rank applies the same update.
 
-Not ported yet (raise ``NotImplementedError``): ``remat_decoder`` and
-``collapse_rollback_threshold > 0`` (ROADMAP Queue 1). The refuted knobs
-(the EMA teacher, ``consistency_stop_step``) are not ported (ROADMAP "Do
-not port").
+``train.remat_decoder`` recomputes the network's forward in the
+backward instead of keeping its activations (JAX: ``jax.checkpoint``
+around the model apply; here ``torch.utils.checkpoint`` around every call
+of the network in the step, :func:`apply_net`). The refuted knobs (the
+EMA teacher, ``consistency_stop_step``) are not ported (ROADMAP "Do not
+port").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -52,6 +55,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from lsi_tpu_torch.api import check_render_config
 from lsi_tpu_torch.config import Config
@@ -68,7 +72,8 @@ from lsi_tpu_torch.models import build_model
 from lsi_tpu_torch.models.ldi_predictor import (freeze_layer0_grad_mask,
                                                 splice_layer0_params)
 from lsi_tpu_torch.parallel.mesh import (ProcessPlan, all_reduce_grads,
-                                         assert_divisible, batch_slice,
+                                         assert_divisible, barrier,
+                                         batch_slice, broadcast_flag,
                                          broadcast_params)
 from lsi_tpu_torch.train.checkpoint import (CheckpointManager,
                                             export_params_npz,
@@ -197,13 +202,6 @@ def check_train_config(cfg: Config) -> None:
     if cfg.model.family not in ("ldi", "mpi"):
         raise ValueError(
             f"unknown model family {cfg.model.family!r}; use ldi|mpi")
-    if cfg.train.remat_decoder:
-        raise NotImplementedError(
-            "remat_decoder is not ported yet (ROADMAP Queue 1, M8)")
-    if cfg.train.collapse_rollback_threshold > 0:
-        raise NotImplementedError(
-            "collapse_rollback_threshold > 0 (the collapse rollback) is not "
-            "ported yet (ROADMAP Queue 1, M9)")
     check_loss_config(cfg.loss)
     check_render_config(cfg.render)
 
@@ -227,15 +225,26 @@ def _truncate_ldi(ldi: LDI, num_layers: int) -> LDI:
         disparities=ldi.disparities[:, :num_layers])
 
 
+def apply_net(net: torch.nn.Module, image: torch.Tensor,
+              intrinsics: torch.Tensor, remat: bool = False):
+    """``net(image, intrinsics)``; with ``remat`` (``train.remat_decoder``)
+    under ``torch.utils.checkpoint``: the forward keeps none of the
+    network's activations and the backward runs it again to rebuild them.
+    The network draws no random numbers, so the gradients are the same."""
+    if not remat:
+        return net(image, intrinsics)
+    return checkpoint(net, image, intrinsics, use_reentrant=False)
+
+
 def apply_model_pair(net: torch.nn.Module, image_a: torch.Tensor,
-                     image_b: torch.Tensor, intrinsics: torch.Tensor
-                     ) -> Tuple[LDI, LDI]:
+                     image_b: torch.Tensor, intrinsics: torch.Tensor,
+                     remat: bool = False) -> Tuple[LDI, LDI]:
     """One forward over both views, stacked on the batch axis. The UNet
     works per sample (convolutions; GroupNorm normalises within each
     sample), so this equals two forwards with half the launches."""
     b = image_a.shape[0]
-    both = net(torch.cat([image_a, image_b]),
-               torch.cat([intrinsics, intrinsics]))
+    both = apply_net(net, torch.cat([image_a, image_b]),
+                     torch.cat([intrinsics, intrinsics]), remat)
     return tuple(LDI(textures=both.textures[sl],
                      disparities=both.disparities[sl],
                      intrinsics=both.intrinsics[sl])
@@ -257,9 +266,11 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
     ``stage_layer0`` step, which keeps the single prediction. With a
     ``data_group`` (``ProcessPlan.batch_group``) the parts are the global
     batch's and the gradients this rank's share of the global gradient
-    (``parallel.reduce``)."""
+    (``parallel.reduce``). Every call of the network goes through
+    :func:`apply_net` (``train.remat_decoder``)."""
     params = state.params()
     lc = cfg.loss
+    remat = cfg.train.remat_decoder
     mpi = cfg.model.family == "mpi"
     two_predictions = not mpi and (lc.consistency_weight > 0
                                    or lc.consistency_anchor_weight > 0
@@ -267,21 +278,24 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
     with record_function("train_step/forward_loss"):
         batch = decode_batch(batch)
         if mpi:
-            pred = state.net(batch.src_image, batch.intrinsics)
+            pred = apply_net(state.net, batch.src_image, batch.intrinsics,
+                             remat)
             parts = mpi_total_loss(
                 pred, batch.src_image, batch.trg_image, batch.pose_src2trg,
                 cfg.loss, gt_disparity=batch.gt_disparity,
                 gt_valid=batch.gt_valid, data_group=data_group)
         elif two_predictions and not stage_layer0:
             pred, pred_trg = apply_model_pair(
-                state.net, batch.src_image, batch.trg_image, batch.intrinsics)
+                state.net, batch.src_image, batch.trg_image, batch.intrinsics,
+                remat)
             parts = total_loss_bidirectional(
                 pred, pred_trg, batch.src_image, batch.trg_image,
                 batch.pose_src2trg, cfg.loss, cfg.render,
                 gt_disparity=batch.gt_disparity, gt_valid=batch.gt_valid,
                 data_group=data_group)
         else:
-            pred = state.net(batch.src_image, batch.intrinsics)
+            pred = apply_net(state.net, batch.src_image, batch.intrinsics,
+                             remat)
             if stage_layer0:
                 pred = _truncate_ldi(pred, 1)
             parts = total_loss(pred, batch.trg_image, batch.pose_src2trg,
@@ -360,8 +374,18 @@ class Trainer:
     exports the params to ``best_params.npz`` (metadata inside, written
     atomically) when that improves. With ``train.freeze_layer0_from_best``
     the layer-0 parameters are spliced from that export when the run
-    crosses the freeze step. A non-finite loss halts the run with a params
+    crosses the freeze step. With ``train.collapse_rollback_threshold``
+    an eval whose drift crosses it restores every parameter from that
+    export and re-initialises the optimizer (the warmup replays), at most
+    ``train.collapse_max_rollbacks`` times a run (``rollback_state.json``),
+    and checkpoints at once. A non-finite loss halts the run with a params
     dump outside the checkpoints.
+
+    ``run_stamp.json`` holds a hash of the config (:func:`run_stamp`). A
+    start that finds no checkpoint removes another run's best export and
+    rollback budget from the directory, but keeps those of a run with the
+    same stamp: that run crashed before its first checkpoint, and this is
+    it again.
 
     ``device`` defaults to the card; with no CUDA device it raises (pass
     ``device="cpu"`` to train on the CPU).
@@ -372,10 +396,14 @@ class Trainer:
     share, every rank restores the checkpoint on resume, and rank 0 alone
     writes the jsonl, the checkpoints and the best export, runs the evals
     on whole batches (the numbers of a one-process run), and splices
-    layer 0 at the freeze, whose parameters it then broadcasts.
+    layer 0 at the freeze, whose parameters it then broadcasts. Rank 0
+    decides a rollback; every rank then takes its parameters and a fresh
+    optimizer state.
     """
 
     BEST_NPZ = "best_params.npz"
+    ROLLBACK_JSON = "rollback_state.json"
+    RUN_STAMP = "run_stamp.json"
 
     def __init__(self, config: Config, device="cuda",
                  plan: Optional[ProcessPlan] = None):
@@ -435,6 +463,21 @@ class Trainer:
                     f"loss.consistency_start_step={lcfg.consistency_start_step}"
                     " (the freeze is the LAST phase)")
             self.step_fns["freeze"] = step(freeze_layer0=True)
+        if t.collapse_rollback_threshold > 0:
+            if not t.save_best_params:
+                raise ValueError("train.collapse_rollback_threshold requires "
+                                 "train.save_best_params=True (the rollback "
+                                 "target is the best-eval export)")
+            if t.eval_every <= 0:
+                raise ValueError("train.collapse_rollback_threshold requires "
+                                 "train.eval_every > 0 (the collapse signal "
+                                 "is the in-training eval's drift metric)")
+            if t.drift_warn_threshold <= 0:
+                raise ValueError("train.collapse_rollback_threshold requires "
+                                 "train.drift_warn_threshold > 0 (the drift "
+                                 "monitor computes the eval_abs_rel_drift "
+                                 "signal the rollback triggers on)")
+        self._rollback_count: Optional[int] = None
         self._eval_step = None
         self._eval_iter = None
         self._best_eval_abs_rel = None
@@ -487,9 +530,10 @@ class Trainer:
                   "layer-0 freeze (train.freeze_layer0_step) and best-"
                   "checkpoint selection by eval_abs_rel", flush=True)
 
-    def run_eval(self, state: TrainState, step: int) -> Dict[str, float]:
-        """The in-training eval on held-out batches: ``eval_*`` metrics to
-        the jsonl and an image grid under ``eval_images/step_<N>``."""
+    def eval_metrics(self, state: TrainState, step: int) -> Dict[str, float]:
+        """The eval's ``eval_*`` metrics, averaged over
+        ``train.eval_batches`` held-out batches, with the first batch's
+        image grid written under ``eval_images/step_<N>``."""
         cfg = self.config
         if self._eval_step is None:
             self._eval_step = build_eval_step(cfg)
@@ -507,19 +551,36 @@ class Trainer:
                 sums[k] = sums.get(k, 0.0) + v
             if i == 0:
                 grid_args = (batch, rendered, pred)
-        out = {f"eval_{k}": v / n for k, v in sums.items()}
-        if "eval_abs_rel" not in out and (cfg.train.freeze_layer0_from_best
-                                          and not cfg.train.freeze_fallback_live):
-            raise ValueError(
-                "train.freeze_layer0_from_best requires eval_abs_rel, but the "
-                f"eval at step {step} produced none: the eval split of "
-                f"dataset {cfg.data.dataset!r} has no ground-truth depth. "
-                "Provide it, or set train.freeze_fallback_live=True to "
-                "freeze the live params at the boundary.")
         export_image_grid(*grid_args, self._path(os.path.join(
             "eval_images", f"step_{step:08d}")))
+        return {f"eval_{k}": v / n for k, v in sums.items()}
+
+    def run_eval(self, state: TrainState, step: int) -> Dict[str, float]:
+        """The in-training eval (:meth:`eval_metrics`), its drift, best
+        export and collapse rollback; its metrics go to the jsonl."""
+        cfg = self.config
+        out = self.eval_metrics(state, step)
+        if "eval_abs_rel" not in out:
+            # Without it neither the splice source nor the collapse signal
+            # exists: fail at the first eval, not at the freeze boundary.
+            needs = []
+            if (cfg.train.freeze_layer0_from_best
+                    and not cfg.train.freeze_fallback_live):
+                needs.append("train.freeze_layer0_from_best")
+            if cfg.train.collapse_rollback_threshold > 0:
+                needs.append("train.collapse_rollback_threshold")
+            if needs:
+                raise ValueError(
+                    f"{' and '.join(needs)} "
+                    f"{'require' if len(needs) > 1 else 'requires'} "
+                    f"eval_abs_rel, but the eval at step {step} produced "
+                    f"none: the eval split of dataset {cfg.data.dataset!r} "
+                    "has no ground-truth depth. Provide it, or set "
+                    "train.freeze_fallback_live=True to freeze the live "
+                    "params at the boundary.")
         self._update_drift(out)
         self._maybe_export_best(state, step, out)
+        self._maybe_rollback(state, step, out)
         self.writer.write(step, out)
         return out
 
@@ -546,6 +607,109 @@ class Trainer:
         npz = self._path(self.BEST_NPZ)
         export_params_npz(state.net.state_dict(), npz + ".tmp.npz", meta)
         os.replace(npz + ".tmp.npz", npz)
+
+    def _maybe_rollback(self, state: TrainState, step: int,
+                        out: Dict[str, float]) -> None:
+        """The collapse response: when the eval's drift above the run's
+        best crosses ``train.collapse_rollback_threshold``, restore every
+        parameter from ``best_params.npz`` and set ``out["rollback"]`` to
+        the rollbacks used so far (the optimizer is re-initialised by
+        :meth:`rollback_everywhere`). The layer-0 splice alone would leave
+        the trunk and the deep heads in the collapsed basin. Without an
+        export, or with the budget spent, the run continues as it is."""
+        t = self.config.train
+        thr = t.collapse_rollback_threshold
+        drift = out.get("eval_abs_rel_drift", 0.0)
+        if thr <= 0 or drift <= thr:
+            return
+        npz = self._path(self.BEST_NPZ)
+        if not os.path.exists(npz):
+            print(f"[rollback] collapse at step {step} (drift {drift:.3f} > "
+                  f"{thr}) but no best_params.npz exists yet; continuing "
+                  "without rollback", flush=True)
+            return
+        if self._rollback_count is None:
+            self._rollback_count = _read_rollback_count(
+                self._path(self.ROLLBACK_JSON))
+        if self._rollback_count >= t.collapse_max_rollbacks:
+            print(f"[rollback] collapse at step {step} (drift {drift:.3f}) "
+                  f"but the rollback budget ({t.collapse_max_rollbacks}) is "
+                  "spent: repeated collapse is a recipe problem, not a "
+                  "transient; continuing", flush=True)
+            return
+        self._rollback_count += 1
+        best = import_params_npz(self.config.model, npz)
+        with torch.no_grad():
+            for k, p in state.net.named_parameters():
+                p.copy_(best[k])
+        try:
+            meta = read_params_npz_meta(npz)
+            src = (f"step {int(meta['step'])}, "
+                   f"eval_abs_rel {meta['eval_abs_rel']:.4f}")
+        except (OSError, KeyError, ValueError):
+            src = "metadata missing"
+        print(f"[rollback] eval_abs_rel {out['eval_abs_rel']:.3f} at step "
+              f"{step} is {drift:.3f} above the run's best (> {thr}): "
+              "geometry collapse; restoring ALL params from best_params.npz "
+              f"({src}), re-initializing the optimizer (LR re-warmup), "
+              f"rollback {self._rollback_count}/{t.collapse_max_rollbacks}",
+              flush=True)
+        out["rollback"] = float(self._rollback_count)
+
+    def rollback_everywhere(self, state: TrainState, rolled: bool) -> bool:
+        """After an eval, on every rank: rank 0's rollback decision
+        (``rolled``); where it rolled back, every rank takes rank 0's
+        restored parameters and a fresh optimizer state (zero moments and
+        count, so the learning-rate schedule replays its warmup)."""
+        rolled = broadcast_flag(self.plan, rolled)
+        if rolled:
+            broadcast_params(self.plan, state.net)
+            state.opt_state = Optimizer(self.config).init(
+                {k: p.detach() for k, p in state.net.named_parameters()})
+        return rolled
+
+    def _write_rollback_count(self) -> None:
+        """``rollback_state.json``, written after the rolled-back state's
+        checkpoint: a crash in between resumes with the parameters rolled
+        back and the budget not yet charged, never the other way round."""
+        path = self._path(self.ROLLBACK_JSON)
+        with open(path + ".tmp", "w") as f:
+            json.dump({"count": self._rollback_count}, f)
+        os.replace(path + ".tmp", path)
+
+    def _start_in_directory(self, fresh: bool) -> None:
+        """Rank 0, before the first step: on a fresh start (no checkpoint)
+        in a directory stamped by another run, or not stamped, remove that
+        run's best export and rollback budget, which must neither seed the
+        trackers nor be spliced into layer 0, and take no drift baseline
+        from its jsonl lines. A directory with this config's stamp holds
+        this run's own files from before a crash: keep them. Then stamp
+        the directory."""
+        t = self.config.train
+        stamp = run_stamp(self.config)
+        path = self._path(self.RUN_STAMP)
+        try:
+            with open(path) as f:
+                same = json.load(f).get("config_sha256") == stamp
+        except (OSError, ValueError, AttributeError):
+            same = False
+        if fresh and same:
+            print(f"[train] fresh start of the run stamped in "
+                  f"{t.checkpoint_dir} (a crash before its first "
+                  "checkpoint): keeping its best export and rollback "
+                  "budget", flush=True)
+        elif fresh:
+            for name in (self.BEST_NPZ, "best_params.json",
+                         self.ROLLBACK_JSON):
+                if os.path.exists(self._path(name)):
+                    os.remove(self._path(name))
+                    print(f"[train] fresh start: removed stale {name} from "
+                          f"{t.checkpoint_dir}", flush=True)
+            self._drift_seeded = True
+        os.makedirs(t.checkpoint_dir, exist_ok=True)
+        with open(path + ".tmp", "w") as f:
+            json.dump({"config_sha256": stamp}, f)
+        os.replace(path + ".tmp", path)
 
     def splice_best_layer0(self, state: TrainState) -> TrainState:
         """At the freeze boundary: every layer-0-owned parameter entry from
@@ -598,18 +762,8 @@ class Trainer:
         state = create_state(cfg, seed=t.seed, device=self.device)
         state = self.ckpt.restore(state)
         start_step = state.step
-        if start_step == 0 and self.is_main:
-            # A fresh start in a reused directory: another run's best
-            # export must neither seed the trackers nor be spliced into
-            # layer 0, and its jsonl lines must not seed the drift
-            # baseline.
-            for name in (self.BEST_NPZ, "best_params.json",
-                         "rollback_state.json"):
-                if os.path.exists(self._path(name)):
-                    os.remove(self._path(name))
-                    print(f"[train] fresh start: removed stale {name} from "
-                          f"{t.checkpoint_dir}", flush=True)
-            self._drift_seeded = True
+        if self.is_main:
+            self._start_in_directory(fresh=start_step == 0)
         own_data = data_iter is None
         if own_data:
             data_iter = make_dataset(
@@ -658,14 +812,28 @@ class Trainer:
                                       echo=self.is_main)
                     last_metrics = metrics
 
-                if self.is_main and t.eval_every and (
-                        (step + 1) % t.eval_every == 0
-                        or step + 1 == max_steps):
-                    last_metrics.update(self.run_eval(state, step + 1))
-
-                if self.is_main and ((step + 1) % t.checkpoint_every == 0
+                rolled = False
+                if t.eval_every and ((step + 1) % t.eval_every == 0
                                      or step + 1 == max_steps):
+                    if self.is_main:
+                        out = self.run_eval(state, step + 1)
+                        last_metrics.update(out)
+                        rolled = "rollback" in out
+                    if t.collapse_rollback_threshold > 0:
+                        rolled = self.rollback_everywhere(state, rolled)
+
+                if self.is_main and (rolled
+                                     or (step + 1) % t.checkpoint_every == 0
+                                     or step + 1 == max_steps):
+                    # A rollback is checkpointed at once, so a crash cannot
+                    # resume the collapsed parameters.
                     self.ckpt.save(step + 1, state)
+                    if rolled:
+                        self._write_rollback_count()
+            # Rank 0 writes the last checkpoint after the others are done:
+            # none returns before it exists, so a train() that follows in
+            # these processes restores the same step on every rank.
+            barrier(self.plan)
         finally:
             if own_data:
                 data_iter.close()
@@ -678,6 +846,26 @@ class Trainer:
                 profiler.export_chrome_trace(
                     os.path.join(t.profile_dir, "trace.json"))
         return state, last_metrics
+
+
+def run_stamp(cfg: Config) -> str:
+    """A hash of everything in ``cfg`` that shapes the run's path: the
+    config less ``train.max_steps`` (a resume may extend it),
+    ``train.checkpoint_dir`` and ``train.profile_dir``."""
+    d = dataclasses.asdict(cfg)
+    for k in ("max_steps", "checkpoint_dir", "profile_dir"):
+        d["train"].pop(k)
+    return hashlib.sha256(json.dumps(d, sort_keys=True).encode()).hexdigest()
+
+
+def _read_rollback_count(path: str) -> int:
+    """The rollbacks a run has used (``rollback_state.json``), 0 without
+    the file."""
+    try:
+        with open(path) as f:
+            return int(json.load(f)["count"])
+    except (OSError, ValueError, KeyError, TypeError):
+        return 0
 
 
 def _best_abs_rel_from_jsonl(path: str) -> Optional[float]:

@@ -57,7 +57,8 @@ def flat(tree) -> dict:
             for kp, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def make_golden_train(seed: int = 0) -> dict:
+def make_golden_train(seed: int = 0, cfg=None) -> dict:
+    """The fixture's arrays for ``cfg`` (default: the toy kitti_ldi3_b16)."""
     import jax
 
     from lsi_tpu.config import get_config
@@ -65,7 +66,7 @@ def make_golden_train(seed: int = 0) -> dict:
     from lsi_tpu.losses import total_loss
     from lsi_tpu.train.trainer import create_state, make_train_step
 
-    cfg = toy_config(get_config)
+    cfg = cfg or toy_config(get_config)
     state = create_state(cfg, jax.random.key(seed))
     stream = _batch_stream(cfg.data, seed, True)
     batches = [next(stream) for _ in range(STEPS)]
@@ -79,11 +80,15 @@ def make_golden_train(seed: int = 0) -> dict:
             if x is not None:
                 arrays[f"batch{i}/{f.name}"] = np.asarray(x)
 
-    # The first step's gradients, as the train step's loss_fn takes them.
+    # The first step's gradients, as the train step's loss_fn takes them
+    # (through jax.checkpoint with train.remat_decoder).
+    apply = state.apply_fn
+    if cfg.train.remat_decoder:
+        apply = jax.checkpoint(apply)
+
     def loss(params, batch):
         batch = decode_batch(batch)
-        pred = state.apply_fn({"params": params}, batch.src_image,
-                              batch.intrinsics)
+        pred = apply({"params": params}, batch.src_image, batch.intrinsics)
         return total_loss(pred, batch.trg_image, batch.pose_src2trg,
                           cfg.loss, cfg.render,
                           gt_disparity=batch.gt_disparity,

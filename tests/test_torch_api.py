@@ -3,6 +3,7 @@ format both ways, predict_ldi -> render end to end, the golden fixture,
 RenderConfig handling, and that the port never imports JAX.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import dataclasses
 import os
 import subprocess
@@ -178,9 +179,10 @@ def test_port_never_imports_jax():
     step of a toy kitti_ldi3_b16, and trains a toy kitti_ldi3_quality and
     a toy mpi_baseline for one step each through the training CLI (the
     first with ``--dist_backend``) and scores them through the eval CLI,
-    renders height-sharded over two spawned gloo ranks (the parallel
-    modules), writes shards through the materialize CLI, trains a step
-    each from generated KITTI and SYNTHIA layouts through the native
+    renders height-sharded and differentiates on a one-rank plan in this
+    interpreter (the parallel modules), compares both families through
+    the comparison CLI, writes shards through the materialize CLI, trains
+    a step each from generated KITTI and SYNTHIA layouts through the native
     loader, and writes a trajectory GIF through the eval CLI from the
     shards, all through the port, with neither JAX nor any module of the
     JAX package loaded."""
@@ -247,17 +249,23 @@ def test_port_never_imports_jax():
             assert math.isfinite(results["abs_rel"])
         import numpy as np
         from lsi_tpu_torch.parallel import launch, mesh, reduce, spatial
-        with tempfile.TemporaryDirectory() as d:
-            arrays = {"textures": np.random.rand(1, 2, 16, 32, 3),
-                      "disparities": np.full((1, 2, 16, 32, 1), 0.2),
-                      "intrinsics": np.array([[[30.0, 0, 16], [0, 30, 8],
-                                               [0, 0, 1]]])}
-            arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
-            pose = translation_pose([[-0.1, 0.0, 0.0]]).numpy()
-            out = launch.spawn(launch.spatial_render, 2, arrays, pose, 50.0,
-                               1, init_file=d + "/store", device="cpu",
-                               space=2)
-            assert [o["rgb"].shape for o in out] == [(1, 8, 32, 3)] * 2
+        arrays = {"textures": np.random.rand(1, 2, 16, 32, 3),
+                  "disparities": np.full((1, 2, 16, 32, 1), 0.2),
+                  "intrinsics": np.array([[[30.0, 0, 16], [0, 30, 8],
+                                           [0, 0, 1]]])}
+        arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+        pose = translation_pose([[-0.1, 0.0, 0.0]]).numpy()
+        out = launch.spatial_render(mesh.ProcessPlan(), arrays, pose, 50.0,
+                                    1, target=np.zeros((1, 16, 32, 3),
+                                                       np.float32))
+        assert out["rgb"].shape == (1, 16, 32, 3)
+        assert np.isfinite(out["grad_disparities"]).all()
+        from lsi_tpu_torch.evaluation import compare
+        results = compare.main(["1", "--device", "cpu", "--set",
+                                "model.base_filters=8", "model.num_scales=2",
+                                "model.num_planes=4", "data.height=16",
+                                "data.width=32", "data.batch_size=2"])
+        assert sorted(results) == ["mpi_baseline", "synthetic_sanity"]
         import lsi_tpu_torch.data.kitti_oxts
         import lsi_tpu_torch.data.splits
         import lsi_tpu_torch.device

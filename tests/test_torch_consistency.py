@@ -16,6 +16,7 @@ otherwise compare two different rules (ROADMAP H12).
 JAX runs on its lax path (the CPU default); no Pallas kernel runs here.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import dataclasses
 import os
 

@@ -14,6 +14,7 @@ skip the JAX-only conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import dataclasses
 import os
 

@@ -8,6 +8,7 @@ differently, so like is compared with like): the examples are bitwise
 equal, and so are the batches ``decode_batch`` makes of them.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import dataclasses
 import os
 

@@ -5,6 +5,7 @@ model and a multi-object batch, the eval data split, and the image grid.
 JAX runs on its lax path (the CPU default); no Pallas kernel runs here.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import dataclasses
 
 import jax

@@ -6,6 +6,7 @@ per-layer inverse-warp gather of ``geometry/ldi.py`` with its gradients.
 The kernels themselves run only on a CUDA card: tests/test_torch_cuda.py.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import jax
 import jax.numpy as jnp
 import numpy as np

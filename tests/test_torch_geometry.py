@@ -8,6 +8,7 @@ interpret mode; the projection's and the render's gradients against
 ``jax.vjp``.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ The warp on CUDA tensors (the gather kernel K4) is held to this CPU path
 in tests/test_torch_cuda.py.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import jax
 import jax.numpy as jnp
 import numpy as np

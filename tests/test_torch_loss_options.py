@@ -10,6 +10,7 @@ The candidate gathers are one stacked ``GatherFn`` call in the port; on a
 card that is one launch of each gather kernel (tests/test_torch_cuda.py).
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import dataclasses
 
 import jax

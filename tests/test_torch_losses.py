@@ -7,6 +7,7 @@ layers), every layer in the image over most of it (ties in the max of
 JAX runs on its lax path (the CPU default); no Pallas kernel runs here.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import dataclasses
 
 import jax

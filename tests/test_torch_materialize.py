@@ -9,6 +9,7 @@ the shards; the :class:`Prefetcher` gives bitwise the synchronous stream's
 batches and raises a worker's error in the consumer without hanging.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import dataclasses
 import json
 import os

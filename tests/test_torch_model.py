@@ -6,6 +6,7 @@ is compared tightly (1e-5: the same convolutions summed in another order);
 bfloat16 loosely (2e-2: the two frameworks round to bf16 at other places).
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import dataclasses
 
 import jax

@@ -13,6 +13,7 @@ which chip_smoke.py holds the card to as well. Tolerances: values within
 1e-5, gradients within 1e-4 of the largest.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import dataclasses
 import os
 

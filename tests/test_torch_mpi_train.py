@@ -11,6 +11,7 @@ JAX's Trainer never runs here: its run is recorded in
 tests/data/torch_golden_mpi_toy.npz by scripts/make_torch_golden_mpi.py.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import json
 import os
 

@@ -3,6 +3,7 @@ package's (``lsi_tpu.native``): the same files, good, corrupt and missing,
 give bitwise the same arrays (both are built from the same C++ source with
 the same flags; the port's into ``lsi_tpu_torch/_build/``)."""
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import struct
 import zlib
 

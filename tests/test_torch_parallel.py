@@ -6,12 +6,15 @@ rtol 1e-4 / atol 1e-6), for ``photo_mode="both"`` and the quality
 recipe's two-prediction graph with its consistency terms (the ratio
 losses, whose global value is not a mean of per-rank ratios); and the
 data-parallel ``Trainer``: only rank 0 writes, evaluations equal a
-one-process run's, every rank resumes.
+one-process run's, every rank resumes, and rank 0's collapse rollback
+reaches every rank.
 
 JAX runs first, in this process; the port's ranks are spawned processes
-(``parallel.launch``) that import neither JAX nor this file.
+(``parallel.launch``) that import neither JAX nor this file. One spawn
+runs every rank program of the module in turn.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import concurrent.futures
 import dataclasses
 import json
@@ -149,11 +152,14 @@ def jax_two_devices(name, params, batches):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Per config: JAX over 2 devices, the port in one process and on 2
-    ranks, from the same parameters and global batches. The ranks of both
-    configs are spawned at once, after JAX, while this process takes the
-    one-process steps."""
+def spawned(tmp_path_factory):
+    """Every 2-rank program of this module, in turn in one spawn of two
+    gloo ranks: per config the data-parallel train steps from the same
+    parameters and global batches as JAX over 2 devices; the
+    data-parallel Trainer's run, its resume to step 8, and a run whose
+    eval at step 4 forces a collapse. JAX runs first; while the ranks run,
+    this process takes the one-process steps and the one-process Trainer
+    run."""
     inputs = {}
     for name, (preset, loss) in CONFIGS.items():
         cfg = toy(get_config, preset, **loss)
@@ -167,17 +173,41 @@ def runs(tmp_path_factory):
                     if v is not None} for _ in range(STEPS)]
         inputs[name] = (cfg, params, batches,
                         jax_two_devices(name, params, batches))
-    with concurrent.futures.ThreadPoolExecutor(len(CONFIGS)) as pool:
-        ranks = {name: pool.submit(
-            launch.spawn, launch.train_steps, 2, cfg, params, batches,
-            init_file=tmp_path_factory.mktemp(name) / "store", device="cpu")
-            for name, (cfg, params, batches, _) in inputs.items()}
+    one_dir = tmp_path_factory.mktemp("one")
+    two_dir = tmp_path_factory.mktemp("two")
+    rollback_dir = str(tmp_path_factory.mktemp("rollback"))
+    trainer_cfg = toy_trainer_config(two_dir)
+    calls = [(launch.train_steps, (cfg, params, batches))
+             for cfg, params, batches, _ in inputs.values()]
+    calls += [(launch.trainer_run, (trainer_cfg,)),
+              (launch.trainer_run, (trainer_cfg, 8)),
+              (launch.trainer_run, (rollback_config(rollback_dir), None,
+                                    COLLAPSE))]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(
+            launch.spawn, launch.in_turn, 2, calls,
+            init_file=tmp_path_factory.mktemp("store") / "store",
+            device="cpu", timeout_s=SPAWN_TIMEOUT_S)
         one = {name: one_process(cfg, params, batches)
                for name, (cfg, params, batches, _) in inputs.items()}
-        ranks = {name: f.result() for name, f in ranks.items()}
+        one_trainer = ttrainer.Trainer(toy_trainer_config(one_dir),
+                                       device="cpu").train()
+        ranks = ranks.result()
+    per_call = list(zip(*ranks))   # per call, the ranks' results
+    return dict(inputs=inputs, one=one, per_call=per_call,
+                one_trainer=one_trainer, one_dir=one_dir, two_dir=two_dir,
+                rollback_dir=rollback_dir)
+
+
+@pytest.fixture(scope="module")
+def runs(spawned):
+    """Per config: JAX over 2 devices, the port in one process and on 2
+    ranks, from the same parameters and global batches."""
     return {name: dict(cfg=cfg, start=params, batches=batches, jax=jax_res,
-                       ranks=ranks[name], one=one[name])
-            for name, (cfg, params, batches, jax_res) in inputs.items()}
+                       ranks=list(spawned["per_call"][i]),
+                       one=spawned["one"][name])
+            for i, (name, (cfg, params, batches, jax_res))
+            in enumerate(spawned["inputs"].items())}
 
 
 def check_metrics(got, want, norm_rtol=LOSS_RTOL):
@@ -270,6 +300,23 @@ def toy_trainer_config(checkpoint_dir):
         checkpoint_dir=str(checkpoint_dir)))
 
 
+# The rollback run: the quality recipe's toy, no freeze, evals at 2 and 4
+# (and at the last step, 5), the rollback on; its eval at 4 reads abs_rel
+# 1 higher than it is (launch.force_collapse).
+COLLAPSE = (4, 1.0)
+# The one spawn runs 5 programs in turn, with the loaded host of a
+# parallel test run: time for all of them, and for each collective.
+SPAWN_TIMEOUT_S = 300
+
+
+def rollback_config(checkpoint_dir):
+    cfg = toy_trainer_config(checkpoint_dir)
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, max_steps=5, freeze_layer0_step=0,
+        freeze_layer0_from_best=False, checkpoint_every=100,
+        collapse_rollback_threshold=0.05))
+
+
 def listing(d):
     return sorted(os.path.relpath(os.path.join(root, f), d)
                   for root, _, files in os.walk(d) for f in files)
@@ -281,21 +328,14 @@ def jsonl(d):
 
 
 @pytest.fixture(scope="module")
-def trainer_runs(tmp_path_factory):
-    one_dir = tmp_path_factory.mktemp("one")
-    two_dir = tmp_path_factory.mktemp("two")
-    one = ttrainer.Trainer(toy_trainer_config(one_dir), device="cpu").train()
-    cfg = toy_trainer_config(two_dir)
-    first = launch.spawn(launch.trainer_run, 2, cfg,
-                         init_file=tmp_path_factory.mktemp("s1") / "store",
-                         device="cpu")
-    files = listing(two_dir)
-    lines = jsonl(two_dir)
-    resumed = launch.spawn(launch.trainer_run, 2, cfg, 8,
-                           init_file=tmp_path_factory.mktemp("s2") / "store",
-                           device="cpu")
-    return dict(one=one, one_dir=one_dir, first=first, files=files,
-                lines=lines, resumed=resumed, two_dir=two_dir)
+def trainer_runs(spawned):
+    """The one-process Trainer run and the 2-rank one (6 steps), its files
+    and jsonl lines as it left them, and its resume to step 8."""
+    first, resumed = spawned["per_call"][len(CONFIGS):len(CONFIGS) + 2]
+    lines = [ln for ln in jsonl(spawned["two_dir"]) if ln["step"] <= 6]
+    return dict(one=spawned["one_trainer"], one_dir=spawned["one_dir"],
+                first=list(first), files=first[0]["files"], lines=lines,
+                resumed=list(resumed), two_dir=spawned["two_dir"])
 
 
 def test_only_rank0_writes(trainer_runs):
@@ -356,6 +396,32 @@ def test_every_rank_resumes(trainer_runs):
         np.testing.assert_array_equal(p0[k], p1[k], err_msg=k)
 
 
+def test_rollback_reaches_every_rank(spawned):
+    """Rank 0 alone evaluates and decides; after its rollback at step 4
+    both ranks hold the step-2 export bitwise, each with a fresh
+    optimizer, and the next step (lr 0 again) keeps them there, equal; the
+    rollback's checkpoint is rank 0's."""
+    from lsi_tpu_torch.train import checkpoint as tckpt
+    ranks = spawned["per_call"][-1]
+    d = spawned["rollback_dir"]
+    cfg = rollback_config(d)
+    assert ranks[0]["metrics"]["eval_abs_rel"] >= 0
+    with open(os.path.join(d, "train.jsonl")) as f:
+        rolled = [json.loads(ln).get("rollback") for ln in f]
+    assert rolled.count(1.0) == 1
+    best = tckpt.import_params_npz(cfg.model, os.path.join(
+        d, "best_params.npz"))
+    for r in ranks:
+        assert r["step"] == 5 and r["opt_count"] == ranks[0]["opt_count"]
+        assert r["opt_count"] <= 1
+        for k, v in best.items():
+            np.testing.assert_array_equal(r["params"][k], v.numpy(),
+                                          err_msg=k)
+    assert "checkpoint_00000004.pt" in ranks[0]["files"]
+    assert "rollback_state.json" in ranks[0]["files"]
+    assert ranks[1]["files"] is None
+
+
 def test_torchrun_runs_the_data_parallel_cli(tmp_path):
     """``torchrun --standalone --nproc_per_node=2 -m lsi_tpu_torch.train
     --device cpu --dist_backend gloo``: rank 0 alone prints the config and
@@ -386,4 +452,4 @@ def test_torchrun_runs_the_data_parallel_cli(tmp_path):
     assert out.count("eval_psnr=") == 1
     assert sorted(os.listdir(tmp_path)) == [
         "best_params.npz", "checkpoint_00000002.pt", "eval_images",
-        "train.jsonl"]
+        "run_stamp.json", "train.jsonl"]

@@ -22,6 +22,7 @@ which import neither JAX nor this file. One spawn per grid runs all of
 that grid's cases.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import concurrent.futures
 
 import numpy as np
@@ -154,11 +155,12 @@ def grids(tmp_path_factory):
             pose = pose_of(t, b)
             jax_res[(data, space), name] = (jax_case(arrays, pose, max_dy,
                                                      target), arrays)
-            args.append((arrays, pose, ZSCALE, max_dy, target))
+            args.append((launch.spatial_render,
+                         (arrays, pose, ZSCALE, max_dy, target)))
         spawns[(data, space)] = (cases, args)
     with concurrent.futures.ThreadPoolExecutor(len(GRIDS)) as pool:
         ranks = {grid: pool.submit(
-            launch.spawn, launch.spatial_renders, grid[0] * grid[1], args,
+            launch.spawn, launch.in_turn, grid[0] * grid[1], args,
             init_file=tmp_path_factory.mktemp("store") / "store",
             device="cpu", space=grid[1])
             for grid, (_, args) in spawns.items()}

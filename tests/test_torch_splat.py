@@ -6,6 +6,7 @@ dispatch and input checks.
 The kernel itself runs only on a CUDA card: tests/test_torch_cuda.py.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import jax
 import jax.numpy as jnp
 import numpy as np

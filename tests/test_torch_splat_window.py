@@ -10,6 +10,7 @@ is held to this plain version on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import jax
 import jax.numpy as jnp
 import numpy as np

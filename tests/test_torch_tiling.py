@@ -7,6 +7,7 @@ the float4 path only at C = 4 with aligned pointers.
 The kernels themselves run only on a CUDA card: tests/test_torch_cuda.py.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ recorded in tests/data/torch_golden_quality_toy.npz by
 scripts/make_torch_golden_quality.py.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import dataclasses
 import json
 import os
@@ -327,8 +328,10 @@ CHECKS = {
     "from_best_needs_eval_before_freeze": ({"eval_every": 5}, ValueError),
     "freeze_after_stage": ({"stage_layer0_steps": 5}, ValueError),
     "freeze_after_warmup": ({"freeze_layer0_step": 1}, ValueError),
-    "collapse_rollback": ({"collapse_rollback_threshold": 0.1},
-                          NotImplementedError),
+    # The rollback's signal is the drift monitor's (JAX's precondition);
+    # tests/test_torch_rollback.py holds the other two.
+    "collapse_rollback": ({"collapse_rollback_threshold": 0.1,
+                           "drift_warn_threshold": 0.0}, ValueError),
 }
 
 

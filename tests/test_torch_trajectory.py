@@ -20,6 +20,7 @@ poses on the golden LDI; the port reads 8.1e-4 at most, at 0.5% of
 entries beyond 1e-5.
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import os
 import warnings
 

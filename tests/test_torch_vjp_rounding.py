@@ -7,6 +7,7 @@ The kernel itself runs only on a CUDA card (chip_smoke.py phases 11, 14
 and 24 hold it with this slack).
 """
 
+import torch_threads  # noqa: F401  (caps torch's CPU threads per process)
 import numpy as np
 import pytest
 import torch
