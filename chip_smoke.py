@@ -3,8 +3,9 @@
 training CLI (the quality recipe), the MPI baseline, the multi-process
 paths (the height-sharded render, data-parallel training), training from
 disk (materialized shards, KITTI and SYNTHIA layouts), the trajectory
-sweep, the high-resolution preset, the LDI-vs-planes comparison and the
-collapse rollback once on one NVIDIA GPU.
+sweep, the high-resolution preset, the LDI-vs-planes comparison, the
+collapse rollback and the TPU kernels' windowed route once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -189,17 +190,38 @@ measure no multi-GPU scaling.
              phase 23's shards with the collapse rollback on and a
              collapse forced at step 4: every parameter bitwise the best
              export's, a fresh optimizer, the checkpoint taken at once.
+29. route  — the TPU kernels' route, render.use_pallas="on": (a)
+             kitti_ldi3_quality through the training CLI with --set
+             render.use_pallas=on from phase 23's shards (256x768 b8, its
+             window of 8 rows): 6 steps and an eval, every launch
+             windowed, window_dropped_frac and its warning; the route's
+             full step and the "auto" step on one batch, in turns; (b)
+             lsi_gather_fwd and lsi_gather_bwd_coords windowed (K4-W) on
+             that step's own inputs, at random +-40 px with a window of 2,
+             and with a window that drops nothing against the exact
+             kernels; the windowed K1 and lsi_splat_vjp on the step's own
+             (8, 768, 768, 4) -> (256, 768) inputs; each held to its plain
+             version, timed by CUDA events and alone by torch.profiler;
+             (c) the route at toy size against JAX's interpret-mode
+             kernels in tests/data/torch_golden_pallas_toy.npz (the gather,
+             two quality and two MPI steps); (d) kitti_ldi2 serving b8 on
+             the route beside "auto" (an over-rotated pose warns), the
+             trajectory sweep (window 16), mpi_baseline for 3 steps
+             (homography gather at 2).
 
 The line before the last two is {"kernels": [...]}, then the card's name
 and power limit as nvidia-smi prints them, and last
 {"ok": true, "device": {...}}. Each kernel's ``launches`` counts the
 main paths (phases 5, 10, 13, 16, 17, 21's bf16 steps, 23, 24, 25, 26,
 27 (less the probe without remat) and 28, each counted from 0); the
-windowed modes' count phase 20's ranks, the highres entries phases 26 and
+windowed modes' count phase 20's ranks and phase 29's main paths (its CLI
+run, serving, MPI steps and sweep), the highres entries phases 26 and
 27's. Every entry's ``ms`` and ``plain_ms`` are CUDA-event time per call
 (host work in the wrapper included; the highres entries' plain versions
-run chunk by chunk); the windowed entries also carry ``device_ms``, the
-kernel alone by torch.profiler.
+run chunk by chunk); the windowed entries (``*_window``: K1 and K2 timed
+on the route step's own full-width inputs, K4-W's two kernels on the same
+step's gather) also carry ``device_ms``, the kernel alone by
+torch.profiler (null where its trace missed launches twice).
 """
 
 from __future__ import annotations
@@ -215,6 +237,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 from pathlib import Path
 
@@ -253,6 +276,7 @@ GOLDEN_TRAIN = REPO / "tests" / "data" / "torch_golden_train_toy.npz"
 GOLDEN_QUALITY = REPO / "tests" / "data" / "torch_golden_quality_toy.npz"
 GOLDEN_MPI = REPO / "tests" / "data" / "torch_golden_mpi_toy.npz"
 GOLDEN_REMAT = REPO / "tests" / "data" / "torch_golden_remat_toy.npz"
+GOLDEN_PALLAS = REPO / "tests" / "data" / "torch_golden_pallas_toy.npz"
 
 # K1 vs plain: both sum float32 atomics, in an order that changes from run
 # to run, so they agree to float32 rounding of the sums, not bitwise.
@@ -453,6 +477,43 @@ ROLLBACK_SETS = ["data.dataset=synthetic", "train.max_steps=4",
 ROLLBACK_COLLAPSE = (4, 1.0)
 
 # H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s float32 outside the tensor cores.
+# The TPU kernels' route (phase 29): kitti_ldi3_quality from phase 23's
+# shards with render.use_pallas=on (its published window, pallas_max_dy
+# 8): the warm-up to step 2, then full steps, an eval after step 6 and a
+# checkpoint at the end; no freeze. Every launch of the path windowed.
+ROUTE_ON = ["data.dataset=synthetic", "data.synthetic_scene=multi",
+            "render.use_pallas=on"]
+ROUTE_SETS = ROUTE_ON + [
+    "train.max_steps=6", "loss.consistency_start_step=2",
+    "train.eval_every=6", "train.eval_batches=1",
+    "train.freeze_layer0_step=0", "train.freeze_layer0_from_best=false",
+    "train.checkpoint_every=100", "train.log_every=1"]
+ROUTE_PHASES = ["warmup"] * 2 + ["full"] * 4
+# K4-W at random +-40 px across and +-ROUTE_RANDOM_DY rows at a window of
+# ROUTE_RANDOM_MAX_DY, so that most corners are dropped.
+ROUTE_RANDOM_DY, ROUTE_RANDOM_MAX_DY = 8, 2
+# The route's golden on the card: loss parts 1e-4 relative (phase 12's),
+# the window's share 1e-6; the gather cases at the CPU test's 2e-5 plus
+# 2e-5 relative (the interpret-mode kernels' bf16x6 sums); step-1
+# gradients of the MPI at phase 12's 5e-4 of the largest, of the quality
+# recipe at the CPU test's 5e-3, set from scripts/route_golden_spread.py
+# on the card (8 seeds of the toy step; H100, 700 W): a sound port reads
+# 1.7e-4 to 4.3e-3 of the largest (8.3e-4 on this fixture, seed 0), JAX's
+# own lax-equivalent route 1.9e-4 to 7.0e-3 from its interpret-mode
+# kernels; a gather that breaks the window reads 5.0e-2 or more (exact
+# d_coords, a window one row wider). Faults in the snap stay inside the
+# sound spread; the per-kernel holds catch those.
+ROUTE_LOSS_RTOL = 1e-4
+ROUTE_DROP_ATOL = 1e-6
+ROUTE_GATHER_TOL = (2e-5, 2e-5)
+ROUTE_GRAD_OF_MAX = {"quality": 5e-3, "mpi": QUALITY_GRAD_ATOL_OF_MAX}
+# The MPI baseline on the route (its homography gather at the preset's
+# window, 2 rows): steps through make_train_step.
+ROUTE_MPI_STEPS = 3
+# An over-rotated serving pose: 0.15 rad about x moves rows by ~fy * 0.15,
+# far beyond kitti_ldi2's 2-row window.
+OVER_ROTATED = ([[0.15, 0.0, 0.0]], [[0.0, -0.5, 0.0]])
+
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
@@ -485,25 +546,31 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_us(fn, kernel: str, iters: int = 20) -> float:
+def kernel_device_us(fn, kernel: str, iters: int = 20,
+                     required: bool = True):
     """Mean device time in us, per call of ``fn``, of the CUDA kernels whose
     name holds ``kernel`` (torch.profiler, after warm-up): the kernel
     alone, where a small kernel's calls are bound by the host's work
-    around each launch and CUDA events would time that."""
+    around each launch and CUDA events would time that. A trace that
+    misses launches is taken again once; then, unless ``required``, the
+    reading is None (not measured)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     cuda = torch.profiler.ProfilerActivity.CUDA
-    with torch.profiler.profile(activities=[cuda]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.name]
-    if len(us) != iters:
+    for _ in range(2):
+        with torch.profiler.profile(activities=[cuda]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.name]
+        if len(us) == iters:
+            return sum(us) / iters
+    if required:
         fail(f"the profiler saw {len(us)} {kernel} launches in {iters} calls")
-    return sum(us) / iters
+    return None
 
 
 def in_turns(fns, iters: int):
@@ -528,16 +595,26 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def corners_in_image(coords: torch.Tensor, h: int, w: int) -> int:
+def corners_in_image(coords: torch.Tensor, h: int, w: int,
+                     max_dy: int = -1, fold_h: int = 1,
+                     base_offset: int = 0) -> int:
     """How many of the coordinates' 4 bilinear corners lie in an h x w
-    image (the data-dependent part of the kernels' work)."""
+    image (the data-dependent part of the kernels' work) and, with
+    ``max_dy >= 0``, in the window around their row's base row
+    ``r % fold_h + base_offset``."""
     x0 = torch.floor(coords[..., 0])
     y0 = torch.floor(coords[..., 1])
+    base = (torch.arange(coords.shape[1], device=coords.device) % fold_h
+            + base_offset)[None, :, None].float()
     total = 0
     for dy in (0, 1):
         for dx in (0, 1):
-            total += int(((x0 + dx >= 0) & (x0 + dx <= w - 1)
-                          & (y0 + dy >= 0) & (y0 + dy <= h - 1)).sum())
+            inside = ((x0 + dx >= 0) & (x0 + dx <= w - 1)
+                      & (y0 + dy >= 0) & (y0 + dy <= h - 1))
+            if max_dy >= 0:
+                inside &= ((y0 + dy - base >= -max_dy)
+                           & (y0 + dy - base <= max_dy + 1))
+            total += int(inside.sum())
     return total
 
 
@@ -616,23 +693,25 @@ def check_vjp(name: str, got, ref, slack=(None, None, None)) -> float:
     return err
 
 
-def splat_vjp_terms(values, coords, weights, g_accum, g_wsum, out_hw):
+def splat_vjp_terms(values, coords, weights, g_accum, g_wsum, out_hw,
+                    window=(-1, 1, 0)):
     """Per element of (d_values, d_coords, d_weights), the sum T of the
     magnitudes of the terms that lsi_splat_vjp adds into it: the plain VJP
     on |values|, |weights| and |cotangents| (whose bilinear fractions are
     >= 0) for d_values and d_weights; for d_coords the upper bound |w|
     sum_k Q_k (|d frac_k / dx| <= 1), where Q_k = |v| . |g_accum[k]| +
-    |g_wsum[k]| at the in-image corner k, read as the plain VJP's d_weights
+    |g_wsum[k]| at the in-image (and, with a ``window`` (max_dy, fold_h,
+    base_offset), in-window) corner k, read as the plain VJP's d_weights
     at the integer coordinate of that corner."""
     v, w, ga, gw = (t.abs() for t in (values, weights, g_accum, g_wsum))
     t_values, _, t_weights = splat_cuda._plain_vjp(
-        v, coords, w, ga, gw, out_hw, (True, False, True))
+        v, coords, w, ga, gw, out_hw, (True, False, True), *window)
     base = torch.floor(coords)
     q = torch.zeros_like(weights)
     for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
         corner = base + base.new_tensor([dx, dy])
         q += splat_cuda._plain_vjp(v, corner, w, ga, gw, out_hw,
-                                   (False, False, True))[2]
+                                   (False, False, True), *window)[2]
     return t_values, (w * q).expand_as(coords), t_weights
 
 
@@ -642,12 +721,13 @@ def splat_vjp_gamma(channels: int) -> float:
     return n * FLOAT32_UNIT_ROUNDOFF / (1 - n * FLOAT32_UNIT_ROUNDOFF)
 
 
-def splat_vjp_slack(values, coords, weights, g_accum, g_wsum, out_hw):
+def splat_vjp_slack(values, coords, weights, g_accum, g_wsum, out_hw,
+                    window=(-1, 1, 0)):
     """2 gamma_n T for (d_values, d_coords, d_weights): float32's
     rounding bound for the difference of two orders of the same sums."""
     gamma = splat_vjp_gamma(values.shape[-1])
     return tuple(2 * gamma * t for t in splat_vjp_terms(
-        values, coords, weights, g_accum, g_wsum, out_hw))
+        values, coords, weights, g_accum, g_wsum, out_hw, window))
 
 
 def grads_of(fn, inputs, cotangents):
@@ -703,13 +783,16 @@ class Recorded:
 
 
 @contextlib.contextmanager
-def recording():
+def recording(windowed: bool = False):
     """Record the arguments (cloned) of every unwindowed kernel launch made
     inside, as {"splat_fwd": [(values, coords, weights, out_hw, snap)],
     "gather_fwd": [(image, coords)], "splat_vjp": [(values, coords,
     weights, g_accum, g_wsum, out_hw)], "gather_bwd_coords": [(image,
-    coords, g_sampled, g_valid)]}: the main path's own inputs. The
-    launches themselves run and count as usual."""
+    coords, g_sampled, g_valid)]}: the main path's own inputs. With
+    ``windowed``, of every windowed launch instead, each with its window
+    appended (K1: (max_dy, fold_h, base_offset); lsi_splat_vjp: a dict of
+    them; the gathers: (max_dy, fold_h)). The launches themselves run and
+    count as usual."""
     calls = {"splat_fwd": [], "gather_fwd": [], "splat_vjp": [],
              "gather_bwd_coords": []}
     launch_splat = splat_cuda._launch_splat
@@ -718,24 +801,34 @@ def recording():
 
     def splat(values, coords, weights, out_hw, snap, tiling=None,
               window=(-1, 1, 0)):
-        if window[0] < 0:
-            calls["splat_fwd"].append((values.clone(), coords.clone(),
-                                       weights.clone(), tuple(out_hw), snap))
+        if (window[0] >= 0) == windowed:
+            calls["splat_fwd"].append(
+                (values.clone(), coords.clone(), weights.clone(),
+                 tuple(out_hw), snap) + ((window,) if windowed else ()))
         return launch_splat(values, coords, weights, out_hw, snap, tiling,
                             window)
 
-    def gather(image, coords, tiling=None):
-        calls["gather_fwd"].append((image.clone(), coords.clone()))
-        return launch_gather(image, coords, tiling)
+    def gather(image, coords, tiling=None, window=(-1, 1)):
+        if (window[0] >= 0) == windowed:
+            calls["gather_fwd"].append((image.clone(), coords.clone())
+                                       + ((window,) if windowed else ()))
+        return launch_gather(image, coords, tiling, window)
 
     def record_vjp(values, coords, weights, g_accum, g_wsum, out_hw,
-                   needs=(True, True, True), max_dy=-1, **kw):
-        if max_dy < 0:
+                   needs=(True, True, True), max_dy=-1, fold_h=None,
+                   base_offset=0):
+        if (max_dy >= 0) == windowed:
             calls["splat_vjp"].append(tuple(t.clone() for t in (
-                values, coords, weights, g_accum, g_wsum)) + (tuple(out_hw),))
+                values, coords, weights, g_accum, g_wsum)) + (tuple(out_hw),)
+                + ((dict(max_dy=max_dy, fold_h=fold_h,
+                         base_offset=base_offset),) if windowed else ()))
 
-    def record_bwd(*tensors):
-        calls["gather_bwd_coords"].append(tuple(t.clone() for t in tensors))
+    def record_bwd(image, coords, g_sampled, g_valid, max_dy=-1,
+                   fold_h=None):
+        if (max_dy >= 0) == windowed:
+            calls["gather_bwd_coords"].append(tuple(t.clone() for t in (
+                image, coords, g_sampled, g_valid))
+                + ((max_dy, fold_h) if windowed else ()))
 
     splat_cuda._launch_splat, gather_cuda._launch_gather_fwd = splat, gather
     splat_cuda.splat_vjp = Recorded(vjp, record_vjp)
@@ -748,13 +841,13 @@ def recording():
         splat_cuda.splat_vjp, gather_cuda.gather_bwd_coords = vjp, bwd
 
 
-def k1_bound(values, coords, weights, out_hw):
+def k1_bound(values, coords, weights, out_hw, window=(-1, 1, 0)):
     """K1's bound: each input read and accum/wsum written once, against
-    2 (C+1) float32 operations per in-image corner."""
+    2 (C+1) float32 operations per in-image (and in-window) corner."""
     n, _, _, c = values.shape
     return bound(nbytes(values, coords, weights)
                  + 4 * n * out_hw[0] * out_hw[1] * (c + 1),
-                 2 * (c + 1) * corners_in_image(coords, *out_hw))
+                 2 * (c + 1) * corners_in_image(coords, *out_hw, *window))
 
 
 def k1_image_grad_bound(values, coords, out_hw):
@@ -839,14 +932,14 @@ def time_gather_fwd(label: str, smi: str, image, coords, iters: int = 20):
     return t, bnd, err, lib
 
 
-def gather_bwd_bound(image, coords, cot):
+def gather_bwd_bound(image, coords, cot, window=(-1, 1)):
     """lsi_gather_bwd_coords' bound: image, coordinates and cotangents read
     and d_coords written once, against 20 float32 operations per sample
-    and 2C+2 per in-image corner."""
+    and 2C+2 per in-image (and in-window) corner."""
     _, hi, wi, c = image.shape
     return bound(nbytes(image, coords, *cot) + nbytes(coords),
                  20 * coords[..., 0].numel()
-                 + (2 * c + 2) * corners_in_image(coords, hi, wi))
+                 + (2 * c + 2) * corners_in_image(coords, hi, wi, *window))
 
 
 def time_gather_bwd(label: str, smi: str, image, coords, gen,
@@ -893,10 +986,18 @@ KERNELS = {"splat_fwd": splat_cuda.splat, "splat_vjp": splat_cuda.splat_vjp,
 def reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.window_launches = 0
 
 
 def counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def window_counts() -> dict:
+    """The windowed launches since the last reset, as the kernels line
+    names them."""
+    return {name + "_window": k.window_launches
+            for name, k in KERNELS.items()}
 
 
 def golden_serve(dev) -> dict:
@@ -1409,15 +1510,17 @@ def quality_run(dev, workdir: Path):
             host, rates)
 
 
-def vjp_bound(values, coords, weights, out_hw):
+def vjp_bound(values, coords, weights, out_hw, window=(-1, 1, 0)):
     """lsi_splat_vjp's bound: the forward's inputs read twice (once for the
     sums, once for the combine), the cotangents once, against the float32
-    operations per pixel and per in-image corner (as in phase 11)."""
+    operations per pixel and per in-image (and in-window) corner (as in
+    phase 11)."""
     n, hs, ws, c = values.shape
     cot = 4 * n * out_hw[0] * out_hw[1] * (c + 1)
     return bound(2 * nbytes(values, coords, weights) + cot,
                  20 * n * hs * ws
-                 + (2 * c + 2) * 2 * corners_in_image(coords, *out_hw)
+                 + (2 * c + 2) * 2 * corners_in_image(coords, *out_hw,
+                                                      *window)
                  + (2 * c + 12) * n * hs * ws)
 
 
@@ -1841,8 +1944,8 @@ def window_phase(dev, smi: str, ldi, pose, zscale):
         values, coords, weights, out_hw, **kw), "splat_fwd_kernel")
     dev_vjp = kernel_device_us(lambda: splat_cuda.splat_vjp(
         values, coords, weights, *cot, out_hw, **kw), "splat_vjp_kernel")
-    b_fwd = k1_bound(values, coords, weights, out_hw)
-    b_vjp = vjp_bound(values, coords, weights, out_hw)
+    b_fwd = k1_bound(values, coords, weights, out_hw, window)
+    b_vjp = vjp_bound(values, coords, weights, out_hw, window)
     label = (f"shard {k} of {SPATIAL_S} ({tuple(values.shape)} -> "
              f"{out_hw}, window {window})")
     log("timing", f"{smi} | K1 windowed on {label}: kernel {dev_fwd:.1f} us "
@@ -1895,7 +1998,8 @@ def spatial_phase(dev, workdir: Path) -> dict:
         disp = ldi.disparities.clone().requires_grad_()
         ref = render_forward(
             LDI(ldi.textures, disp, ldi.intrinsics), pose,
-            zbuffer_scale=zscale, pallas_max_dy=SPATIAL_MAX_DY)
+            zbuffer_scale=zscale, use_pallas="on",
+            pallas_max_dy=SPATIAL_MAX_DY)
         loss = ((ref["rgb"] - torch.from_numpy(target).to(dev)) ** 2).mean()
         loss.backward()
         exact = render_forward(ldi, pose, zbuffer_scale=zscale)
@@ -2837,6 +2941,526 @@ def rollback_phase(dev, workdir: Path) -> str:
             f"{used}/{cfg.train.collapse_max_rollbacks}")
 
 
+# ---------------------------------------------------------------------
+# Phase 29: the TPU kernels' route (render.use_pallas="on").
+
+def route_counts() -> dict:
+    return {**counts(), **window_counts()}
+
+
+def all_windowed(tag: str, launched: dict) -> None:
+    """Every launch counted in ``launched`` (route_counts) windowed."""
+    for name in KERNELS:
+        if launched[name] != launched[name + "_window"]:
+            fail(f"{tag}: {launched[name + '_window']} of {launched[name]} "
+                 f"{name} launches windowed")
+
+
+def dy_warnings(fn):
+    """``fn()`` and the window warnings it gave."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn()
+    return out, [str(w.message) for w in caught
+                 if "dy-window" in str(w.message)]
+
+
+def route_cli(workdir: Path, shards: Path):
+    """Phase 29 (a): the training CLI on kitti_ldi3_quality with
+    --set render.use_pallas=on, from phase 23's shards; every launch
+    windowed. Returns the summary and its launches."""
+    ckpt = workdir / "route_run"
+    sets = ROUTE_SETS + [f"data.root={shards}", f"train.checkpoint_dir={ckpt}"]
+    reset_counts()
+    (_, _, host), warned = dy_warnings(lambda: traced_cli(
+        "route", "kitti_ldi3_quality", sets, ROUTE_PHASES, STEP_LAUNCHES,
+        (len(ROUTE_PHASES),), EVAL_LAUNCHES, 1))
+    launched = route_counts()
+    all_windowed("route CLI", launched)
+    with open(ckpt / "train.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    train_lines = [r for r in lines if "total" in r]
+    drops = [r["window_dropped_frac"] for r in train_lines]
+    rates = [r["steps_per_sec"] for r in train_lines]
+    evals = [r for r in lines if "eval_abs_rel" in r]
+    if len(train_lines) != len(ROUTE_PHASES) or len(evals) != 1 or not all(
+            np.isfinite(v) for r in lines for v in r.values()
+            if isinstance(v, float)):
+        fail(f"route CLI: jsonl {lines}")
+    if any(d > 1e-4 for d in drops) != bool(warned) or len(warned) > 1:
+        fail(f"route CLI: window_dropped_frac {drops}, warnings {warned}")
+    return (f"kitti_ldi3_quality through the training CLI with --set "
+            f"render.use_pallas=on from phase 23's shards: "
+            f"{len(ROUTE_PHASES)} steps (phases {ROUTE_PHASES}) and an eval, "
+            f"every one of {launched} launches windowed; steps_per_sec "
+            f"{secs(rates)}; host s a step {secs(host['step'])}; "
+            f"window_dropped_frac {secs(drops)}; warned "
+            f"{len(warned)} time(s){': ' + warned[0] if warned else ''}; "
+            f"eval_abs_rel {evals[0]['eval_abs_rel']:.4f}, eval_psnr "
+            f"{evals[0]['eval_psnr']:.3f}, eval_window_dropped_frac "
+            f"{evals[0]['eval_window_dropped_frac']:.6f}"), launched
+
+
+def route_step(dev, smi: str) -> dict:
+    """Phase 29 (a): the route's quality step and the "auto" step on the
+    same batch, in turns (auto, on, on, auto); then the route's step
+    recorded. Returns the first windowed call of each kernel (K1 and
+    lsi_splat_vjp at the full LDI)."""
+    cfg = build_config("kitti_ldi3_quality", ROUTE_ON)
+    auto = cfg.replace(render=dataclasses.replace(cfg.render,
+                                                  use_pallas="auto"))
+    b, h, w = cfg.data.batch_size, cfg.data.height, cfg.data.width
+    state = create_state(cfg, seed=0, device=dev)
+    batch = next(batch_stream(cfg.data, seed=0, device=dev))
+    on_step, auto_step = make_train_step(cfg), make_train_step(auto)
+    t, readings = in_turns({"plain": lambda: auto_step(state, batch),
+                            "kernel": lambda: on_step(state, batch)},
+                           iters=10)
+    log("timing", f"{smi} | quality step kitti_ldi3_quality b{b} {h}x{w} "
+        f"(full): render.use_pallas=on {t['kernel']:.3f} ms "
+        f"({1e3 / t['kernel']:.3f} steps/s) {readings['kernel']}, \"auto\" "
+        f"{t['plain']:.3f} ms ({1e3 / t['plain']:.3f} steps/s) "
+        f"{readings['plain']} on the same batch, in turns; on / auto "
+        f"{t['kernel'] / t['plain']:.4f}")
+    with recording(windowed=True) as calls:
+        on_step(state, batch)
+    full = [c for c in calls["splat_fwd"] if c[0].shape[1] == 3 * h]
+    vjp = [c for c in calls["splat_vjp"] if c[0].shape[1] == 3 * h]
+    got = [len(calls["splat_fwd"]), len(calls["splat_vjp"]),
+           len(calls["gather_fwd"]), len(calls["gather_bwd_coords"])]
+    if got != [FULL_STEP[k] for k in ("splat_fwd", "splat_vjp", "gather_fwd",
+                                      "gather_bwd_coords")] or not full \
+            or not vjp:
+        fail(f"route: one windowed quality step recorded {got}")
+    # The backward runs the gathers in reverse order: pair the first
+    # forward with its own backward.
+    fwd = calls["gather_fwd"][0]
+    bwd = [c for c in calls["gather_bwd_coords"]
+           if torch.equal(c[1], fwd[1])]
+    if not bwd:
+        fail("route: no recorded gather backward at the first forward's "
+             "coordinates")
+    return {"splat_fwd": full[0], "splat_vjp": vjp[0], "gather_fwd": fwd,
+            "gather_bwd_coords": bwd[0]}
+
+
+def hold_timed(label: str, smi: str, name: str, kernel, plain, check,
+               kernel_name: str, bnd, iters: int = 10) -> dict:
+    """A kernel call against its plain version (``check(got, ref)``
+    returns the max abs err or fails), both timed in turns by CUDA
+    events, and the kernel alone by torch.profiler; logs and returns the
+    kernels line's reading."""
+    err = check(kernel(), plain())
+    t, readings = in_turns({"plain": plain, "kernel": kernel}, iters=iters)
+    dev_us = kernel_device_us(kernel, kernel_name, required=False)
+    alone = ("not measured (the profiler's trace missed launches)"
+             if dev_us is None else
+             f"{dev_us:.1f} us, {100 * bnd[0] / (dev_us / 1e3):.0f}% of the "
+             "bound")
+    log("timing", f"{smi} | {name} {label}: {1e3 * t['kernel']:.1f} us/call "
+        f"{readings['kernel']} (events), plain {1e3 * t['plain']:.1f} us/call "
+        f"{readings['plain']}; bound {1e3 * bnd[0]:.1f} us ({bnd[1]}), "
+        f"{100 * bnd[0] / t['kernel']:.0f}% of it by events; the kernel "
+        f"alone (profiler) {alone}; max abs err {err:.3e}")
+    return dict(t=t, bound=bnd, err=err, library=None,
+                device_ms=None if dev_us is None else dev_us / 1e3)
+
+
+def hold_gather_window(label: str, smi: str, image, coords, window,
+                       cot) -> tuple:
+    """lsi_gather_fwd and lsi_gather_bwd_coords windowed against the plain
+    windowed gather and its autograd VJP (phases 11 and 18's
+    tolerances), timed."""
+    max_dy, fold_h = window
+    _, hi, wi, c = image.shape
+
+    def check_fwd(got, ref):
+        return max(check_close(f"K4-W {label} {k}", g, r, 1e-5, 1e-6)
+                   for k, g, r in zip(("sampled", "valid"), got, ref))
+
+    sampled = gather_cuda.gather_fwd(image, coords, *window)
+    fwd = hold_timed(
+        label, smi, "lsi_gather_fwd windowed",
+        lambda: gather_cuda.gather_fwd(image, coords, *window),
+        lambda: bilinear_sample(image, coords, max_dy=max_dy, fold_h=fold_h),
+        check_fwd, "gather_fwd_kernel",
+        bound(nbytes(image, coords, *sampled),
+              20 * coords[..., 0].numel()
+              + 2 * (c + 1) * corners_in_image(coords, hi, wi, *window)))
+    bwd = hold_timed(
+        label + " and cotangents", smi, "lsi_gather_bwd_coords windowed",
+        lambda: gather_cuda.gather_bwd_coords(image, coords, *cot, *window),
+        lambda: gather_cuda._plain_coords_vjp(image, coords, *cot, *window),
+        lambda g, r: check_vjp(f"K4-W {label} d_coords", [g], [r]),
+        "gather_bwd_coords_kernel", gather_bwd_bound(image, coords,
+                                                            cot, window))
+    return fwd, bwd
+
+
+def route_inputs(dev, rng, dy: float, max_dy: int, away_from_snap=False):
+    """A (8, 256, 768, 3) image and (8, 768, 768, 2) coordinates folding
+    3 layers, +-40 px across and +-dy rows from each row's base row; with
+    ``away_from_snap``, no fraction within 1e-3 of an integer."""
+    n, hi, wi, c = 8, 256, 768, 3
+    hs = 3 * hi
+    image = rng.uniform(size=(n, hi, wi, c)).astype(np.float32)
+    x = np.arange(wi, dtype=np.float32)[None, None, :] + rng.uniform(
+        -40, 40, (n, hs, wi)).astype(np.float32)
+    y = (np.arange(hs, dtype=np.float32) % hi)[None, :, None] + rng.uniform(
+        -dy, dy, (n, hs, wi)).astype(np.float32)
+    coords = np.stack([x, y], -1)
+    if away_from_snap:
+        f = coords - np.floor(coords)
+        coords = np.where((f < 1e-3) | (f > 1 - 1e-3), coords + 0.01, coords)
+    gen = torch.Generator(device=dev).manual_seed(max_dy + 17)
+    image, coords = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                     for a in (image, coords))
+    cot = (torch.randn(coords.shape[:-1] + (c,), generator=gen, device=dev),
+           torch.randn(coords.shape[:-1] + (1,), generator=gen, device=dev))
+    return image, coords, cot
+
+
+def route_kernels(dev, smi: str, own: dict) -> dict:
+    """Phase 29 (b): K4-W on the route step's own inputs (window 8), on
+    random inputs at a window of 2, and, away from the snap zones with a
+    window that drops nothing, against the exact kernels; then the
+    windowed K1 and lsi_splat_vjp on the step's own inputs. Returns the
+    kernels line's readings of the windowed kernels."""
+    out = {}
+    image, coords, window = own["gather_fwd"]
+    g_image, g_coords, g_s, g_v, *g_window = own["gather_bwd_coords"]
+    if not (torch.equal(image, g_image) and torch.equal(coords, g_coords)
+            and tuple(window) == tuple(g_window)):
+        fail("route: the recorded gather forward and backward differ")
+    del g_image, g_coords
+    fwd, bwd = hold_gather_window(
+        f"on the b8 route step's own inputs (window {window})", smi, image,
+        coords, window, (g_s, g_v))
+    out["gather_fwd_window"] = dict(
+        fwd, replaces="lsi_tpu/kernels/gather_pallas.py:61")
+    out["gather_bwd_coords_window"] = dict(
+        bwd, replaces="lsi_tpu/kernels/gather_pallas.py:104")
+    dropped = 1.0 - (gather_cuda.gather_fwd(image, coords, *window)[1].sum()
+                     / gather_cuda.gather_fwd(image, coords)[1].sum()).item()
+    del image, coords, g_s, g_v
+
+    rng = np.random.default_rng(29)
+    image, coords, cot = route_inputs(dev, rng, ROUTE_RANDOM_DY,
+                                      ROUTE_RANDOM_MAX_DY)
+    window = gather_cuda.gather_window(image, coords, ROUTE_RANDOM_MAX_DY)
+    fwd, bwd = hold_gather_window(
+        f"at random +-40 px, +-{ROUTE_RANDOM_DY} rows (window {window})",
+        smi, image, coords, window, cot)
+    random_drop = 1.0 - (gather_cuda.gather_fwd(image, coords, *window)[1]
+                         .sum() / gather_cuda.gather_fwd(image, coords)[1]
+                         .sum()).item()
+    for k, r in (("gather_fwd_window", fwd), ("gather_bwd_coords_window",
+                                              bwd)):
+        out[k]["err"] = max(out[k]["err"], r["err"])
+
+    image, coords, cot = route_inputs(dev, rng, 1.0, 8, away_from_snap=True)
+    wide = gather_cuda.gather_fwd(image, coords, 8)
+    exact = gather_cuda.gather_fwd(image, coords)
+    same = max(check_close(f"K4-W wide window vs exact {k}", a, b, 0.0, 1e-6)
+               for k, a, b in zip(("sampled", "valid"), wide, exact))
+    d_wide = gather_cuda.gather_bwd_coords(image, coords, *cot, 8)
+    d_exact = gather_cuda.gather_bwd_coords(image, coords, *cot)
+    same = max(same, check_close("K4-W wide window vs exact d_coords",
+                                 d_wide, d_exact, 0.0, 1e-6))
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        wide + (d_wide,), exact + (d_exact,)))
+    del image, coords, cot, wide, exact, d_wide, d_exact
+
+    values, coords, weights, out_hw, snap, window = own["splat_fwd"]
+    base = splat_cuda.window_base_rows(values.shape[1], out_hw[0], *window)
+    kw = dict(max_dy=window[0], fold_h=window[1], base_offset=window[2])
+
+    def check_k1(got, ref):
+        return max(check_close(f"K1 windowed route {k}", g, r, SPLAT_RTOL,
+                               SPLAT_ATOL_OF_MAX * r.abs().max().item())
+                   for k, g, r in zip(("accum", "wsum"), got, ref))
+
+    label = (f"on the b8 route step's own inputs ({tuple(values.shape)} -> "
+             f"{out_hw}, window {window})")
+    out["splat_fwd_window"] = hold_timed(
+        label, smi, "K1 windowed",
+        lambda: splat_cuda.splat(values, coords, weights, out_hw, snap=snap,
+                                 **kw),
+        lambda: splat_bilinear(values, coords, weights, out_hw, snap=snap,
+                               max_dy_window=window[0],
+                               base_rows=base.to(dev)),
+        check_k1, "splat_fwd_kernel",
+        k1_bound(values, coords, weights, out_hw, window))
+    del values, coords, weights
+    values, coords, weights, g_accum, g_wsum, out_hw, vkw = own["splat_vjp"]
+    vwin = (vkw["max_dy"], vkw["fold_h"] or out_hw[0], vkw["base_offset"])
+    slack = splat_vjp_slack(values, coords, weights, g_accum, g_wsum, out_hw,
+                            vwin)
+    out["splat_vjp_window"] = hold_timed(
+        label + " and cotangents", smi, "lsi_splat_vjp windowed",
+        lambda: splat_cuda.splat_vjp(values, coords, weights, g_accum,
+                                     g_wsum, out_hw, **vkw),
+        lambda: splat_cuda._plain_vjp(values, coords, weights, g_accum,
+                                      g_wsum, out_hw, (True, True, True),
+                                      *vwin),
+        lambda g, r: check_vjp("lsi_splat_vjp windowed route", g, r, slack),
+        "splat_vjp_kernel", vjp_bound(values, coords, weights, out_hw, vwin))
+    log("route", f"K4-W held to the plain windowed gather on the route "
+        f"step's own inputs (the window drops {dropped:.4%} of the valid "
+        f"mass) and at random +-40 px (drops {random_drop:.4%}); a window "
+        f"that drops nothing, away from the snap zones, is the exact "
+        f"kernels' gather within {same:.3e} (bitwise: {bitwise}); the "
+        f"windowed K1 and lsi_splat_vjp held on the step's own inputs")
+    return out
+
+
+def golden_pallas(dev) -> str:
+    """Phase 29 (c): the route at toy size on the card (float32, TF32
+    off, cuDNN deterministic) against JAX's interpret-mode kernels in
+    tests/data/torch_golden_pallas_toy.npz; returns the summary."""
+    with np.load(GOLDEN_PALLAS) as g:
+        golden = {k: g[k] for k in g.files}
+
+    def section(src, prefix):
+        return {k[len(prefix):]: v for k, v in src.items()
+                if k.startswith(prefix)}
+
+    def on(x):
+        return torch.from_numpy(np.asarray(x)).to(dev)
+
+    gather_err = 0.0
+    for i in range(2):
+        case = section(golden, f"gather{i}/")
+        img = on(case["image"]).requires_grad_()
+        crd = on(case["coords"]).requires_grad_()
+        outs = gather_cuda.GatherFn.apply(img, crd, int(case["max_dy"]))
+        grads = torch.autograd.grad(outs, (img, crd), (
+            on(case["g_sampled"]), on(case["g_valid"])))
+        for name, got in zip(("sampled", "valid", "d_image", "d_coords"),
+                             outs + grads):
+            rtol, atol = ROUTE_GATHER_TOL
+            if name == "d_coords":
+                rtol, atol = 0.0, atol * float(np.abs(case[name]).max())
+            gather_err = max(gather_err, check_close(
+                f"golden-route gather{i} {name}", got.detach(),
+                on(case[name]), rtol, atol))
+    summary = [f"gather_pallas_diff (interpret) vs GatherFn windowed: max "
+               f"abs err {gather_err:.3e}"]
+    for name, fixture in (("quality", GOLDEN_QUALITY), ("mpi", GOLDEN_MPI)):
+        g = section(golden, f"{name}/")
+        cfg = Config.from_dict(json.loads(bytes(g["__config__"]).decode()))
+        with np.load(fixture) as f:
+            start = {k: f[k] for k in f.files}
+        state = create_state(cfg, device=dev)
+        state.net.load_state_dict(state_dict_from_jax(
+            section(start, "params/"), cfg.model))
+        # The fixture's own batch fields (the MPI's tilted poses) replace
+        # the starting fixture's.
+        batches = [Batch(**{k: on(v) for k, v in {
+            **section(start, f"batch{i}/"),
+            **section(g, f"batch{i}/")}.items()}) for i in range(2)]
+        before = route_counts()
+        grads = loss_and_grads(state, batches[0], cfg)[1]
+        launched = {k: v - before[k] for k, v in route_counts().items()}
+        all_windowed(f"golden-route {name}", launched)
+        want = {k: v.to(dev) for k, v in state_dict_from_jax(
+            section(g, "step1_grads/"), cfg.model).items()}
+        g_max = max(v.abs().max().item() for v in want.values())
+        g_err = max(check_close(f"golden-route {name} grad {k}", grads[k],
+                                want[k], 0.0,
+                                ROUTE_GRAD_OF_MAX[name] * g_max)
+                    for k in want)
+        step = make_train_step(cfg)
+        metrics_want = section(g, "metrics/")
+        worst, drop_err = 0.0, 0.0
+        for i, batch in enumerate(batches):
+            state, metrics = step(state, batch)
+            if sorted(metrics) != sorted(metrics_want):
+                fail(f"golden-route {name} metrics {sorted(metrics)} vs "
+                     f"{sorted(metrics_want)}")
+            for k, v in metrics_want.items():
+                got, ref = float(metrics[k]), float(v[i])
+                if k.startswith("window_dropped_frac"):
+                    ok = abs(got - ref) <= ROUTE_DROP_ATOL
+                    drop_err = max(drop_err, abs(got - ref))
+                else:
+                    rtol = (TRAIN_NORM_RTOL[i] if k == "grad_norm"
+                            else ROUTE_LOSS_RTOL)
+                    ok = abs(got - ref) <= 1e-7 + rtol * abs(ref)
+                    if k != "grad_norm":
+                        worst = max(worst, abs(got - ref) / max(abs(ref),
+                                                                1e-12))
+                if not ok:
+                    fail(f"golden-route {name} {k} at step {i + 1}: {got} "
+                         f"vs JAX {ref}")
+        drops = metrics_want.get("window_dropped_frac")
+        summary.append(
+            f"toy {name} (window {cfg.render.pallas_max_dy}): step-1 grads "
+            f"max abs err {g_err:.3e} (max |grad| {g_max:.3e}, atol "
+            f"{ROUTE_GRAD_OF_MAX[name]}*max); loss parts over 2 steps max "
+            f"rel err {worst:.2e} (rtol {ROUTE_LOSS_RTOL})"
+            + ("" if drops is None else
+               f"; window_dropped_frac JAX {secs(drops)}, max abs err "
+               f"{drop_err:.2e} (atol {ROUTE_DROP_ATOL})"))
+    return "; ".join(summary)
+
+
+def route_serving(dev, smi: str):
+    """Phase 29 (d): kitti_ldi2 serving on the route (b8, 4 requests and
+    one over-rotated pose, which must warn), frames/s beside "auto".
+    Returns the summary and the launches of the requests."""
+    config = get_config("kitti_ldi2")
+    h, w = config.data.height, config.data.width
+    on_cfg = config.replace(render=dataclasses.replace(config.render,
+                                                       use_pallas="on"))
+    model = LSIModel.init(0, on_cfg, h, w, device=dev)
+    auto = LSIModel(config, model.net)
+    rng = np.random.default_rng(1)
+    images = [torch.from_numpy(rng.uniform(size=(BATCH, h, w, 3)).astype(
+        np.float32)).to(dev) for _ in range(REQUESTS)]
+    pose = translation_pose([[-0.3, 0.0, 0.0]] * BATCH).to(dev)
+    over = pose_from_euler(OVER_ROTATED[0] * BATCH,
+                           OVER_ROTATED[1] * BATCH).to(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    rendered, quiet = dy_warnings(lambda: [
+        model.render(model.predict_ldi(im), pose) for im in images])
+    ldi = model.predict_ldi(images[0])
+    _, warned = dy_warnings(lambda: model.render(ldi, over))
+    torch.cuda.synchronize()
+    launched = route_counts()
+    all_windowed("route serving", launched)
+    if launched["splat_fwd"] != REQUESTS + 1 or len(warned) != 1 or quiet:
+        fail(f"route serving: launches {launched}, warnings {quiet} then "
+             f"{warned} (one expected, for the over-rotated pose)")
+    if not all(torch.isfinite(r).all() for r in rendered):
+        fail("route serving: non-finite renders")
+    err = (model.render(ldi, pose) - auto.render(ldi, pose)).abs().max().item()
+    image = images[0]
+    t, readings = in_turns({
+        "plain": lambda: auto.render(auto.predict_ldi(image), pose),
+        "kernel": lambda: model.render(model.predict_ldi(image), pose)},
+        iters=20)
+    return (f"{smi} | kitti_ldi2 b{BATCH} {h}x{w} on the route: "
+            f"{REQUESTS} requests and one over-rotated pose, {launched}, all "
+            f"windowed; the over-rotated pose warned ({warned[0]}); "
+            f"on vs auto render max abs diff at t=-0.3 {err:.3e}; "
+            f"end-to-end {t['kernel']:.3f} ms ({1e3 * BATCH / t['kernel']:.1f}"
+            f" frames/s) {readings['kernel']}, \"auto\" {t['plain']:.3f} ms "
+            f"({1e3 * BATCH / t['plain']:.1f} frames/s) {readings['plain']}, "
+            "in turns"), launched
+
+
+def route_trajectory(dev, smi: str, workdir: Path):
+    """Phase 29 (d): the trajectory sweep on the route (windowed K1 at
+    trajectory_sweep's window of 16): 8 windowed launches, the frames
+    beside "auto"'s; returns the summary and the launches."""
+    from lsi_tpu_torch.evaluation.trajectory import render_trajectory
+    from lsi_tpu_torch.models import build_model
+    cfg = build_config("trajectory_sweep", [
+        "render.use_pallas=on",
+        f"train.checkpoint_dir={workdir / 'no_checkpoint'}"])
+    auto = cfg.replace(render=dataclasses.replace(cfg.render,
+                                                  use_pallas="auto"))
+    net = build_model(cfg.model)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    net = net.to(dev)
+    reset_counts()
+    frames, warned = dy_warnings(lambda: runner.trajectory_frames(cfg, net,
+                                                                  dev))
+    launched = route_counts()
+    all_windowed("route trajectory", launched)
+    # The sweep's rotation moves rows by at most ~4 at 768 px: the window
+    # of 16 keeps everything, so the sweep must not warn.
+    if launched["splat_fwd"] != TRAJECTORY_CHUNKS or warned or not \
+            torch.isfinite(frames).all():
+        fail(f"route trajectory: {launched}, warnings {warned}")
+    err = (frames - runner.trajectory_frames(auto, net, dev)).abs().max()
+    it = make_dataset(cfg.data, seed=1, device=dev)
+    try:
+        batch = decode_batch(next(it))
+    finally:
+        it.close()
+    with torch.no_grad():
+        ldi = net(batch.src_image[:1], batch.intrinsics[:1])
+    t, readings = in_turns({
+        "plain": lambda: render_trajectory(ldi, 60, (0.15, 0.0, 0.0),
+                                           (0.0, 0.0, 0.01), auto.render),
+        "kernel": lambda: render_trajectory(ldi, 60, (0.15, 0.0, 0.0),
+                                            (0.0, 0.0, 0.01), cfg.render)},
+        iters=5)
+    return (f"{smi} | trajectory_sweep on the route (window "
+            f"{cfg.render.pallas_max_dy}): 60 views in "
+            f"{launched['splat_fwd_window']} windowed K1 launches, no "
+            f"warning, frames {err.item():.3e} from auto's at most; the "
+            f"sweep of one LDI (phase 25's) {t['kernel']:.3f} ms "
+            f"{readings['kernel']}, auto {t['plain']:.3f} ms "
+            f"{readings['plain']}, in turns"), launched
+
+
+def route_mpi(dev, smi: str):
+    """Phase 29 (d): mpi_baseline at its widths on the route (the
+    homography gather windowed at 2 rows), ROUTE_MPI_STEPS steps through
+    make_train_step, then its step beside "auto"'s; returns the summary
+    and the launches."""
+    cfg = build_config("mpi_baseline", ["render.use_pallas=on"])
+    auto = cfg.replace(render=dataclasses.replace(cfg.render,
+                                                  use_pallas="auto"))
+    state = create_state(cfg, seed=0, device=dev)
+    stream = batch_stream(cfg.data, seed=0, device=dev)
+    batches = [next(stream) for _ in range(ROUTE_MPI_STEPS)]
+    step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    history = []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+    torch.cuda.synchronize()
+    launched = route_counts()
+    all_windowed("route mpi", launched)
+    per_step = {k: MPI_STEP[k] * ROUTE_MPI_STEPS for k in MPI_STEP}
+    if {k: launched[k] for k in KERNELS} != per_step or not all(
+            np.isfinite(v) for m in history for v in m.values()):
+        fail(f"route mpi: launches {launched}, metrics {history}")
+    auto_step = make_train_step(auto)
+    t, readings = in_turns({"plain": lambda: auto_step(state, batches[0]),
+                            "kernel": lambda: step(state, batches[0])},
+                           iters=5)
+    b, h, w = cfg.data.batch_size, cfg.data.height, cfg.data.width
+    return (f"{smi} | mpi_baseline b{b} {h}x{w} on the route (window "
+            f"{cfg.render.pallas_max_dy}): {ROUTE_MPI_STEPS} steps, "
+            f"{launched}, all windowed; photo_mpi "
+            + ", ".join(f"{m['photo_mpi']:.5f}" for m in history)
+            + f"; step {t['kernel']:.3f} ms {readings['kernel']}, auto "
+            f"{t['plain']:.3f} ms {readings['plain']}, in turns"), launched
+
+
+def route_phase(dev, smi: str, workdir: Path, shards: Path):
+    """Phase 29: the TPU kernels' route. Returns the windowed kernels'
+    readings for the kernels line and the launches of its main paths
+    ((a) the CLI run, (d) serving, the sweep, the MPI steps)."""
+    summary, launched = route_cli(workdir, shards)
+    log("route", summary)
+    own = route_step(dev, smi)
+    torch.cuda.empty_cache()
+    kernels = route_kernels(dev, smi, own)
+    del own
+    torch.cuda.empty_cache()
+    log("route", "golden (toy, float32, TF32 off, cuDNN deterministic) vs "
+        "JAX's kernels in interpret mode: " + with_tf32_off(
+            lambda: with_cudnn_deterministic(lambda: golden_pallas(dev))))
+    for fn in (route_serving, route_mpi):
+        summary, more = fn(dev, smi)
+        log("route", summary)
+        launched = {k: v + more[k] for k, v in launched.items()}
+        torch.cuda.empty_cache()
+    summary, more = route_trajectory(dev, smi, workdir)
+    log("route", summary)
+    launched = {k: v + more[k] for k, v in launched.items()}
+    return kernels, launched
+
+
 def main() -> None:
     # 1. Device.
     if not torch.cuda.is_available():
@@ -3219,7 +3843,7 @@ def main() -> None:
         kernels.update(window_phase(dev, smi, ldi, pose, zscale))
         del ldi, pose
         torch.cuda.empty_cache()
-        window_counts = spatial_phase(dev, workdir)
+        spatial_counts = spatial_phase(dev, workdir)
         torch.cuda.empty_cache()
         dp_counts = dp_phase(dev, smi, workdir)
         torch.cuda.empty_cache()
@@ -3258,6 +3882,12 @@ def main() -> None:
         compare_phase(smi)
         log("rollback", rollback_phase(dev, workdir))
         compare_counts = counts()
+
+        # 29: the TPU kernels' route (render.use_pallas="on"), the quality
+        # recipe from phase 23's shards, serving, the sweep and the MPI.
+        torch.cuda.empty_cache()
+        route_kernels_read, route_launches = route_phase(
+            dev, smi, workdir, workdir / "shards")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for name, c in (("shards", shard_counts), ("datasets", dataset_counts),
@@ -3273,7 +3903,19 @@ def main() -> None:
              + dp_counts[name] + shard_counts[name] + dataset_counts[name]
              + trajectory_counts[name] + highres_counts[name]
              + compare_counts[name] for name in KERNELS}
-    total.update(window_counts)
+    total.update(spatial_counts)
+    # The windowed K1 and K2 entries: times on the route step's own
+    # full-width inputs (phase 29), errors of phases 19 and 29.
+    for name in ("splat_fwd_window", "splat_vjp_window"):
+        total[name] += route_launches[name]
+        kernels[name] = dict(
+            route_kernels_read[name], replaces=kernels[name]["replaces"],
+            err=max(kernels[name]["err"], route_kernels_read[name]["err"]))
+    for name in ("gather_fwd_window", "gather_bwd_coords_window"):
+        if route_launches[name] == 0:
+            fail(f"{name} was not launched by the route's main paths")
+        total[name] = route_launches[name]
+        kernels[name] = route_kernels_read[name]
     total["splat_fwd_highres"] = highres_counts["splat_fwd"]
     total["splat_vjp_highres"] = highres_counts["splat_vjp"]
     entries = [{

@@ -7,11 +7,12 @@ Both run under ``torch.inference_mode()``. :class:`LSIModel` bundles
 (config, network) and reads and writes the JAX package's ``.npz`` export,
 so a file round-trips between the two packages.
 
-``RenderConfig`` fields: ``zbuffer_scale`` is used; ``pallas_max_dy`` and
-``window_check`` are accepted and have no effect (the port's splat is
-exact, it has no vertical window to check); ``use_pallas`` other than
-``"auto"`` and ``splat_method="sort"`` raise ``ValueError`` (TPU-only
-choices).
+``RenderConfig`` fields: ``zbuffer_scale``; ``use_pallas``, "auto" (the
+default: the exact splat), "off" and False the same, "on" and True the
+JAX package's TPU route, a vertical window of ``pallas_max_dy`` rows
+(``geometry.ldi.render_forward``); ``window_check``: on that route,
+``render`` warns when the window drops content. ``splat_method="sort"``
+raises ``ValueError`` (a TPU-only choice).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 
 from lsi_tpu_torch.config import Config, RenderConfig
 from lsi_tpu_torch.geometry import projection
-from lsi_tpu_torch.geometry.ldi import LDI, render_forward
+from lsi_tpu_torch.geometry.ldi import (LDI, render_forward,
+                                        resolve_use_pallas, warn_window_drop)
 from lsi_tpu_torch.models.convert import (jax_from_state_dict,
                                           state_dict_from_jax)
 from lsi_tpu_torch.models.ldi_predictor import LDIPredictor
@@ -42,11 +44,7 @@ def default_intrinsics(batch: int, height: int, width: int,
 
 def check_render_config(config: RenderConfig) -> None:
     """Reject the RenderConfig values the port does not implement."""
-    if config.use_pallas != "auto":
-        raise ValueError(
-            f"use_pallas={config.use_pallas!r}: the Pallas switch is a "
-            "TPU-only knob; the port takes 'auto' (its CUDA kernel on a "
-            "CUDA tensor, the plain version on a CPU tensor)")
+    resolve_use_pallas(config.use_pallas)  # raises on a value it does not know
     if config.splat_method != "scatter":
         raise ValueError(
             f"splat_method={config.splat_method!r}: the port implements "
@@ -72,11 +70,19 @@ def render(ldi: LDI, pose: torch.Tensor,
 
     Returns the composited novel-view RGB (B, Ho, Wo, 3). For the full
     render dict (disparity, coverage) use ``geometry.ldi.render_forward``.
+    On the windowed route with ``config.window_check`` it warns when the
+    window dropped content (``geometry.ldi.warn_window_drop``).
     """
     config = config or RenderConfig()
     check_render_config(config)
-    return render_forward(ldi, pose, K_trg=K_trg, out_hw=out_hw,
-                          zbuffer_scale=config.zbuffer_scale)["rgb"]
+    out = render_forward(ldi, pose, K_trg=K_trg, out_hw=out_hw,
+                         zbuffer_scale=config.zbuffer_scale,
+                         use_pallas=config.use_pallas,
+                         pallas_max_dy=config.pallas_max_dy,
+                         check_window=config.window_check)
+    if config.window_check and resolve_use_pallas(config.use_pallas):
+        warn_window_drop(out["window_dropped_frac"], config.pallas_max_dy)
+    return out["rgb"]
 
 
 class LSIModel:

@@ -38,9 +38,9 @@ class ModelConfig:
 class RenderConfig:
     zbuffer_scale: float = 50.0
     splat_method: str = "scatter"   # the port takes only "scatter".
-    use_pallas: str = "auto"        # TPU-only; the port takes only "auto".
-    pallas_max_dy: int = 2          # the trajectory's window check only.
-    window_check: bool = True       # the trajectory's window check only.
+    use_pallas: str = "auto"        # "on": the TPU kernels' windowed route.
+    pallas_max_dy: int = 2          # that route's vertical window, in rows.
+    window_check: bool = True       # count and warn what the window drops.
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,8 +28,17 @@
 // max_dy + 1], base = r % fold_h + base_offset for source row r, counts
 // as outside the image, so it adds nothing to S0, SX or SY (the gradients
 // masked to the window, as splat_pallas.py:splat_pallas_diff's are). The
-// window is one more test in the shared corner function; the gathers pass
-// max_dy = -1 and compute what they computed before.
+// window is one more test in the shared corner function.
+//
+// The two gathers have the same windowed mode (K4-W, max_dy >= 0): the
+// semantics of gather_pallas.py:gather_pallas_diff, whose forward is K2's
+// S0 of [image, 1] and whose coordinate gradient is its SX and SY. They
+// take the corner function with SNAP and the window at base = r % fold_h:
+// snapped fractions, a corner outside the window dropped from sampled and
+// valid, and a coordinate gradient of 0 where a fraction lies in a snap
+// zone. The mode is a template parameter (its own kernel), so with
+// max_dy = -1 the exact lax gather runs the code it ran before, bitwise.
+// The window adds one test per corner to a kernel bound by bytes.
 //
 // Per source pixel at (x, y) with corners k = 00, 01 (x+1), 10 (y+1), 11,
 // fractions fx, fy and I_k the input at corner k (0 outside the image):
@@ -245,13 +254,16 @@ __device__ __forceinline__ int gather_tile_row(int group, int j,
          j * row_stride;
 }
 
-template <int C>
+// WINDOW: K4-W (snapped, windowed at base row r % fold_h), a separate
+// instantiation so that the exact gather's code is what it was.
+template <int C, bool WINDOW>
 __global__ void __launch_bounds__(kThreads)
     gather_fwd_kernel(const float* __restrict__ image,
                       const float* __restrict__ coords,
                       float* __restrict__ sampled, float* __restrict__ valid,
                       int src_h, int src_w, int img_h, int img_w,
-                      int tile_rows, int row_stride) {
+                      int tile_rows, int row_stride, int max_dy,
+                      int fold_h) {
   const int col = blockIdx.x * kThreads + threadIdx.x;
   const int64_t src_base = static_cast<int64_t>(blockIdx.z) * src_h * src_w;
   const float* img =
@@ -273,6 +285,29 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int j = 0; j < kMaxTileRows; ++j) {
     if (!on[j]) continue;
+    if constexpr (WINDOW) {
+      const int r = gather_tile_row(blockIdx.y, j, row_stride, tile_rows);
+      const Corners c =
+          corners<true>(q[j].x, q[j].y, 0, img_h, img_w, r % fold_h, max_dy);
+      float acc[C];
+      float mass = 0.0f;
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) acc[ch] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (c.off[k] < 0) continue;
+        const float* px = &img[c.off[k] * C];
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) acc[ch] += px[ch] * c.frac[k];
+        mass += c.frac[k];
+      }
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        sampled[(src_base + p[j]) * C + ch] = acc[ch];
+      }
+      valid[src_base + p[j]] = mass;
+      continue;
+    }
     const float x0 = floorf(q[j].x);
     const float y0 = floorf(q[j].y);
     const float fx = q[j].x - x0;
@@ -304,19 +339,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int C>
+// WINDOW: K4-W (snapped, windowed at base row r % fold_h), a separate
+// instantiation so that the exact gather's code is what it was.
+template <int C, bool WINDOW>
 __global__ void gather_bwd_coords_kernel(
     const float* __restrict__ image, const float* __restrict__ coords,
     const float* __restrict__ g_sampled, const float* __restrict__ g_valid,
     float* __restrict__ d_coords, int64_t total, int64_t pixels_per_image,
-    int64_t img_h, int64_t img_w) {
+    int64_t img_h, int64_t img_w, int64_t src_w, int max_dy,
+    int64_t fold_h) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < total; i += stride) {
-    const Corners c =
-        corners<false>(coords[2 * i], coords[2 * i + 1],
-                       (i / pixels_per_image) * img_h * img_w, img_h, img_w);
+    const Corners c = corners<WINDOW>(
+        coords[2 * i], coords[2 * i + 1],
+        (i / pixels_per_image) * img_h * img_w, img_h, img_w,
+        WINDOW ? (i % pixels_per_image) / src_w % fold_h : 0,
+        WINDOW ? max_dy : -1);
     float g[C];
 #pragma unroll
     for (int ch = 0; ch < C; ++ch) g[ch] = g_sampled[i * C + ch];
@@ -333,8 +373,8 @@ __global__ void gather_bwd_coords_kernel(
     }
     float gx, gy;
     tent_grad(c, q, &gx, &gy);
-    d_coords[2 * i] = gx;
-    d_coords[2 * i + 1] = gy;
+    d_coords[2 * i] = !WINDOW || c.live_x ? gx : 0.0f;
+    d_coords[2 * i + 1] = !WINDOW || c.live_y ? gy : 0.0f;
   }
 }
 
@@ -406,18 +446,29 @@ extern "C" int lsi_splat_vjp(const void* values, const void* coords,
       base_offset);
 }
 
+// The windowed gathers' contract: base rows r % fold_h inside the image.
+static bool bad_gather_window(int max_dy, int64_t fold_h, int64_t src_h,
+                       int64_t img_h) {
+  return max_dy >= 0 &&
+         (fold_h <= 0 || fold_h > img_h || src_h % fold_h != 0);
+}
+
 // The gather's forward (K4). image (n, img_h, img_w, channels), coords
 // (n, src_h, src_w, 2), 8-byte aligned -> sampled (n, src_h, src_w,
 // channels), valid (.., 1). Grid (ceil(src_w / 256), row_groups, n) of
 // 256 threads; tile_rows (<= 4) rows spaced row_stride apart per block.
+// max_dy >= 0: K4-W, snapped and windowed at base row r % fold_h;
+// max_dy < 0: the exact gather.
 extern "C" int lsi_gather_fwd(const void* image, const void* coords,
                               void* sampled, void* valid, int64_t n,
                               int64_t src_h, int64_t src_w, int channels,
                               int64_t img_h, int64_t img_w, int row_groups,
-                              int tile_rows, int row_stride, void* stream) {
+                              int tile_rows, int row_stride, int max_dy,
+                              int64_t fold_h, void* stream) {
   if (n * src_h * src_w == 0) return 0;
   if (tile_rows <= 0 || tile_rows > kMaxTileRows || row_stride <= 0 ||
-      row_groups <= 0 || channels < 1 || channels > 8) {
+      row_groups <= 0 || channels < 1 || channels > 8 ||
+      bad_gather_window(max_dy, fold_h, src_h, img_h)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((src_w + kThreads - 1) / kThreads, row_groups, n);
@@ -427,12 +478,19 @@ extern "C" int lsi_gather_fwd(const void* image, const void* coords,
   auto* s = static_cast<float*>(sampled);
   auto* v = static_cast<float*>(valid);
   switch (channels) {
+#define LSI_GATHER_FWD_ARGS                                                  \
+  im, c, s, v, static_cast<int>(src_h), static_cast<int>(src_w),             \
+      static_cast<int>(img_h), static_cast<int>(img_w), tile_rows,           \
+      row_stride, max_dy, static_cast<int>(max_dy >= 0 ? fold_h : 1)
 #define LSI_GATHER_CASE(CH)                                                  \
   case CH:                                                                   \
-    gather_fwd_kernel<CH><<<grid, kThreads, 0, st>>>(                        \
-        im, c, s, v, static_cast<int>(src_h), static_cast<int>(src_w),       \
-        static_cast<int>(img_h), static_cast<int>(img_w), tile_rows,         \
-        row_stride);                                                         \
+    if (max_dy >= 0) {                                                       \
+      gather_fwd_kernel<CH, true>                                            \
+          <<<grid, kThreads, 0, st>>>(LSI_GATHER_FWD_ARGS);                  \
+    } else {                                                                 \
+      gather_fwd_kernel<CH, false>                                           \
+          <<<grid, kThreads, 0, st>>>(LSI_GATHER_FWD_ARGS);                  \
+    }                                                                        \
     break;
     LSI_GATHER_CASE(1)
     LSI_GATHER_CASE(2)
@@ -443,23 +501,62 @@ extern "C" int lsi_gather_fwd(const void* image, const void* coords,
     LSI_GATHER_CASE(7)
     LSI_GATHER_CASE(8)
 #undef LSI_GATHER_CASE
+#undef LSI_GATHER_FWD_ARGS
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The gather's coordinate cotangent (K4 backward). g_sampled shaped as
-// sampled, g_valid as valid -> d_coords shaped as coords.
+// sampled, g_valid as valid -> d_coords shaped as coords. max_dy and
+// fold_h as lsi_gather_fwd's.
 extern "C" int lsi_gather_bwd_coords(const void* image, const void* coords,
                                      const void* g_sampled,
                                      const void* g_valid, void* d_coords,
                                      int64_t n, int64_t src_h, int64_t src_w,
                                      int channels, int64_t img_h,
-                                     int64_t img_w, void* stream) {
-  const int64_t ppi = src_h * src_w;
-  LSI_LAUNCH_BY_CHANNELS(
-      gather_bwd_coords_kernel, channels, n * ppi, stream,
-      static_cast<const float*>(image), static_cast<const float*>(coords),
-      static_cast<const float*>(g_sampled),
-      static_cast<const float*>(g_valid), static_cast<float*>(d_coords),
-      n * ppi, ppi, img_h, img_w);
+                                     int64_t img_w, int max_dy,
+                                     int64_t fold_h, void* stream) {
+  if (bad_gather_window(max_dy, fold_h, src_h, img_h)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t total = n * src_h * src_w;
+  if (total == 0) return 0;
+  if (channels < 1 || channels > 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int blocks = 0;
+  cudaError_t err = grid_for(total, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* im = static_cast<const float*>(image);
+  const auto* c = static_cast<const float*>(coords);
+  const auto* gs = static_cast<const float*>(g_sampled);
+  const auto* gv = static_cast<const float*>(g_valid);
+  auto* d = static_cast<float*>(d_coords);
+  switch (channels) {
+#define LSI_GATHER_BWD_ARGS                                                  \
+  im, c, gs, gv, d, total, src_h * src_w, img_h, img_w, src_w, max_dy,       \
+      max_dy >= 0 ? fold_h : 1
+#define LSI_GATHER_CASE(CH)                                                  \
+  case CH:                                                                   \
+    if (max_dy >= 0) {                                                       \
+      gather_bwd_coords_kernel<CH, true>                                     \
+          <<<blocks, kThreads, 0, st>>>(LSI_GATHER_BWD_ARGS);                \
+    } else {                                                                 \
+      gather_bwd_coords_kernel<CH, false>                                    \
+          <<<blocks, kThreads, 0, st>>>(LSI_GATHER_BWD_ARGS);                \
+    }                                                                        \
+    break;
+    LSI_GATHER_CASE(1)
+    LSI_GATHER_CASE(2)
+    LSI_GATHER_CASE(3)
+    LSI_GATHER_CASE(4)
+    LSI_GATHER_CASE(5)
+    LSI_GATHER_CASE(6)
+    LSI_GATHER_CASE(7)
+    LSI_GATHER_CASE(8)
+#undef LSI_GATHER_CASE
+#undef LSI_GATHER_BWD_ARGS
+  }
+  return static_cast<int>(cudaGetLastError());
 }

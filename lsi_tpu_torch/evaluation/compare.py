@@ -13,10 +13,11 @@ and print one table of the metrics both report. ``steps`` defaults to
 presets (toy widths on the CPU); ``--device`` is the card unless ``cpu``
 is asked for.
 
-On ``multi`` scenes the JAX script widens ``render.pallas_max_dy`` to 8.
-That is the Pallas splat's vertical window, a TPU knob: off the TPU JAX
-renders unwindowed, and so does the port, so it changes nothing here and
-is not set.
+On ``multi`` scenes both presets' ``render.pallas_max_dy`` is widened to
+8, as the JAX script does (their pose jitter rotates): the vertical
+window of the TPU kernels' route. It changes nothing under the presets'
+``render.use_pallas="auto"`` (exact); with ``--set render.use_pallas=on``
+it is the window that route renders and gathers with.
 """
 
 from __future__ import annotations
@@ -44,8 +45,12 @@ def comparison_config(name: str, steps: int, scene: str,
                       ) -> Config:
     """``name`` with ``overrides``, on ``scene`` scenes, training ``steps``
     steps into ``checkpoint_dir`` with no in-training eval and one
-    checkpoint at the end (the JAX script's schedule)."""
+    checkpoint at the end (the JAX script's schedule), the window widened
+    to 8 rows on ``multi`` scenes (module docstring)."""
     cfg = build_config(name, overrides)
+    if scene == "multi":
+        cfg = cfg.replace(render=dataclasses.replace(cfg.render,
+                                                     pallas_max_dy=8))
     return cfg.replace(
         data=dataclasses.replace(cfg.data, synthetic_scene=scene),
         train=dataclasses.replace(

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 from typing import Dict, Optional
 
@@ -36,7 +37,7 @@ from lsi_tpu_torch.data.pipeline import Batch, decode_batch, make_dataset
 from lsi_tpu_torch.evaluation.metrics import depth_metrics, psnr, ssim
 from lsi_tpu_torch.evaluation.occlusion import occlusion_metrics
 from lsi_tpu_torch.evaluation.png import write_png
-from lsi_tpu_torch.geometry.ldi import render_forward
+from lsi_tpu_torch.geometry.ldi import render_forward, warn_window_drop
 from lsi_tpu_torch.models import build_model
 from lsi_tpu_torch.models.mpi import MPI, mpi_source_disparity, render_mpi
 from lsi_tpu_torch.train.checkpoint import CheckpointManager
@@ -48,11 +49,14 @@ def build_eval_step(cfg: Config):
     batch carries the target's ground-truth disparity; an MPI's
     (``model.family="mpi"``) are psnr and ssim where the accumulated alpha
     exceeds 0.5, ``psnr_full``, ``coverage`` (the mean accumulated alpha)
-    and the depth metrics of its expected source disparity. Runs without
+    and the depth metrics of its expected source disparity. Renders take
+    ``cfg.render``'s route (``use_pallas``, ``pallas_max_dy``). Runs without
     autograd."""
+    rc = cfg.render
+    route = dict(use_pallas=rc.use_pallas, pallas_max_dy=rc.pallas_max_dy)
     if cfg.model.family == "mpi":
-        return _eval_step_mpi
-    zscale = cfg.render.zbuffer_scale
+        return functools.partial(_eval_step_mpi, route=route)
+    zscale = rc.zbuffer_scale
 
     @torch.no_grad()
     def eval_step(net: torch.nn.Module, batch: Batch):
@@ -60,7 +64,8 @@ def build_eval_step(cfg: Config):
         ldi = net(batch.src_image, batch.intrinsics)
         out = render_forward(ldi, batch.pose_src2trg,
                              out_hw=tuple(batch.trg_image.shape[1:3]),
-                             zbuffer_scale=zscale)
+                             zbuffer_scale=zscale,
+                             check_window=rc.window_check, **route)
         covered = (out["coverage"] > 0).float()
         metrics = {
             "psnr": psnr(out["rgb"], batch.trg_image, mask=covered),
@@ -76,18 +81,18 @@ def build_eval_step(cfg: Config):
             metrics.update(occlusion_metrics(
                 ldi, batch.pose_src2trg, batch.trg_gt_disparity,
                 trg_gt_valid=batch.trg_gt_valid, trg_image=batch.trg_image,
-                zbuffer_scale=zscale))
+                zbuffer_scale=zscale, **route))
         return metrics, out["rgb"], ldi
 
     return eval_step
 
 
 @torch.no_grad()
-def _eval_step_mpi(net: torch.nn.Module, batch: Batch):
+def _eval_step_mpi(net: torch.nn.Module, batch: Batch, route: dict):
     batch = decode_batch(batch)
     mpi = net(batch.src_image, batch.intrinsics)
     out = render_mpi(mpi, batch.pose_src2trg,
-                     out_hw=tuple(batch.trg_image.shape[1:3]))
+                     out_hw=tuple(batch.trg_image.shape[1:3]), **route)
     covered = (out["alpha"] > 0.5).float()
     metrics = {
         "psnr": psnr(out["rgb"], batch.trg_image, mask=covered),
@@ -129,7 +134,11 @@ def evaluate(cfg: Config, net: torch.nn.Module, num_batches: int = 16,
                 export_image_grid(batch, rendered, pred, image_dir)
     finally:
         it.close()
-    return {k: v / num_batches for k, v in sums.items()}
+    results = {k: v / num_batches for k, v in sums.items()}
+    if "window_dropped_frac" in results:
+        warn_window_drop(results["window_dropped_frac"],
+                         cfg.render.pallas_max_dy)
+    return results
 
 
 @torch.no_grad()

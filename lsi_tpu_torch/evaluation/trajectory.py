@@ -6,45 +6,28 @@ config 5: predict once, render 60 poses). JAX renders the poses with
 :func:`render_forward` of the LDI repeated 8·B times, so a 60-view sweep
 launches the forward splat 8 times.
 
-The render is exact (the lax path JAX takes off the TPU). For the
-canonical sinusoidal sweep the share of the splat that the TPU kernel's
-vertical window (``render.pallas_max_dy``) would drop is checked at the
-sweep's two extreme poses, which bound its displacement, and warned about
-on the calling thread (JAX defers the warning to a worker thread, a
-workaround for its remote device link).
+The route is ``render_cfg.use_pallas``'s (``geometry.ldi.render_forward``):
+exact under "auto" (the lax path JAX takes off the TPU), windowed at
+``render.pallas_max_dy`` under "on". For the canonical sinusoidal sweep
+the share of the splat that window would drop is checked at the sweep's
+two extreme poses, which bound its displacement; for given poses every
+windowed render counts its own, as JAX's. The warning
+(``geometry.ldi.warn_window_drop``) is given on the calling thread (JAX
+defers it to a worker thread, a workaround for its remote device link).
 """
 
 from __future__ import annotations
 
-import warnings
 from typing import Optional
 
 import torch
 
 from lsi_tpu_torch.config import RenderConfig
 from lsi_tpu_torch.geometry.ldi import (LDI, project_layers_folded,
-                                        render_forward,
+                                        render_forward, warn_window_drop,
                                         window_dropped_fraction)
 from lsi_tpu_torch.geometry.transforms import (camera_trajectory,
                                                pose_from_euler)
-
-WINDOW_DROP_TOL = 1e-4
-
-
-def warn_window_drop(frac: float, max_dy: Optional[int] = None,
-                     tol: float = WINDOW_DROP_TOL) -> bool:
-    """Warn when the dy window would drop more than ``tol`` of the splat;
-    returns whether it warned (``lsi_tpu.geometry.ldi.warn_window_drop``)."""
-    if frac > tol:
-        extra = f" (pallas_max_dy={max_dy})" if max_dy is not None else ""
-        warnings.warn(
-            f"splat dy-window{extra} drops {frac:.4%} of valid splat "
-            "contributions on this sweep: a windowed render "
-            "(render_forward(..., pallas_max_dy=), the height-sharded "
-            "render, the TPU kernel) misses content. Raise "
-            "render.pallas_max_dy.", RuntimeWarning)
-        return True
-    return False
 
 
 def _repeat(ldi: LDI, k: int) -> LDI:
@@ -57,18 +40,26 @@ def _repeat(ldi: LDI, k: int) -> LDI:
 
 @torch.no_grad()
 def _render_poses(ldi: LDI, poses: torch.Tensor, render_cfg: RenderConfig,
-                  chunk: int = 8) -> torch.Tensor:
-    """(T, B, H, W, 3): each chunk of ``chunk`` poses in one render."""
+                  chunk: int = 8, check: bool = True):
+    """(frames (T, B, H, W, 3), the largest ``window_dropped_frac`` of the
+    renders, 0 unless ``check`` and the route is windowed): each chunk of
+    ``chunk`` poses in one render."""
     b = ldi.batch
     frames = []
+    dropped = 0.0
     for start in range(0, poses.shape[0], chunk):
         p = poses[start:start + chunk]
         k = p.shape[0]
         out = render_forward(_repeat(ldi, k),
                              p.repeat_interleave(b, dim=0),
-                             zbuffer_scale=render_cfg.zbuffer_scale)
+                             zbuffer_scale=render_cfg.zbuffer_scale,
+                             use_pallas=render_cfg.use_pallas,
+                             pallas_max_dy=render_cfg.pallas_max_dy,
+                             check_window=check)
         frames.append(out["rgb"].reshape((k, b) + out["rgb"].shape[1:]))
-    return torch.cat(frames)
+        if check:
+            dropped = max(dropped, out["window_dropped_frac"].item())
+    return torch.cat(frames), dropped
 
 
 @torch.no_grad()
@@ -81,8 +72,8 @@ def _render_canonical_sweep(ldi: LDI, max_translation, max_rotation,
     dev = ldi.textures.device
     poses = camera_trajectory(num_views, max_translation,
                               max_rotation).to(dev)
-    frames = _render_poses(ldi, poses, render_cfg, chunk)
-    dropped = 0.0
+    frames, dropped = _render_poses(ldi, poses, render_cfg, chunk,
+                                    check=False)
     if check:
         b, l, h, w = ldi.textures.shape[:4]
         amp = torch.tensor([[1.0], [-1.0]])
@@ -107,16 +98,19 @@ def render_trajectory(ldi: LDI, num_views: int = 60,
     the LDI's device, without autograd.
 
     With ``poses`` (T, 4, 4) the LDI is rendered at those poses instead
-    of the canonical sweep; the render is exact, so no window check.
-    Otherwise, with ``render_cfg.window_check``, warns when the window of
-    ``render_cfg.pallas_max_dy`` rows would drop content at the sweep's
-    extreme poses.
+    of the canonical sweep. With ``render_cfg.window_check``, warns when
+    the window of ``render_cfg.pallas_max_dy`` rows drops content: at the
+    canonical sweep's extreme poses (the share a windowed render would
+    lose, on either route), or in a given pose's windowed render.
     """
     if poses is not None:
-        return _render_poses(ldi, poses.to(ldi.textures.device), render_cfg)
-    frames, dropped = _render_canonical_sweep(
-        ldi, max_translation, max_rotation, num_views, render_cfg,
-        check=render_cfg.window_check)
+        frames, dropped = _render_poses(ldi, poses.to(ldi.textures.device),
+                                        render_cfg,
+                                        check=render_cfg.window_check)
+    else:
+        frames, dropped = _render_canonical_sweep(
+            ldi, max_translation, max_rotation, num_views, render_cfg,
+            check=render_cfg.window_check)
     if render_cfg.window_check:
         warn_window_drop(dropped, render_cfg.pallas_max_dy)
     return frames

@@ -3,10 +3,15 @@ baselines).
 
 PyTorch counterpart of ``lsi_tpu/geometry/homography.py``: the homography
 induced by a 3D plane between two views, the warp of an image through it,
-and the plane-sweep volume. The warp holds to the JAX package's lax path
-(``ops/gather.bilinear_sample``: no vertical window, no fraction snap); it
-goes through ``kernels.gather_cuda.GatherFn``, so a CUDA tensor launches
-the gather kernel (K4) and a CPU tensor takes the plain gather.
+and the plane-sweep volume. The warp goes through ``kernels.gather_cuda.GatherFn``, so a CUDA tensor
+launches the gather kernel (K4) and a CPU tensor takes the plain gather.
+The warp's route is ``use_pallas``'s (``geometry.ldi.resolve_use_pallas``):
+by default the JAX package's lax path (``ops/gather.bilinear_sample``: no
+vertical window, no fraction snap); "on", where the target's height is a
+multiple of the source's, the TPU kernel's gather, snapped and windowed
+at ``pallas_max_dy`` rows around each target row's base row
+``row % H`` (K4-W). The plane sweep always gathers exactly, as the
+reference's does.
 
 The 3x3 algebra and the per-pixel projective map are written as
 multiply-adds in float32, never TF32 (the reference runs them at
@@ -17,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from lsi_tpu_torch.geometry.ldi import route_max_dy
 from lsi_tpu_torch.geometry.projection import invert_intrinsics
 from lsi_tpu_torch.geometry.transforms import matmul_f32
 from lsi_tpu_torch.kernels.gather_cuda import GatherFn
@@ -72,13 +78,16 @@ def homography_coords(homography_t2s: torch.Tensor, out_hw) -> torch.Tensor:
 
 
 def homography_warp(image_src: torch.Tensor, homography_t2s: torch.Tensor,
-                    out_hw=None):
+                    out_hw=None, use_pallas="off", pallas_max_dy: int = 2):
     """Warp a source image into the target view through a homography.
 
     Args:
       image_src: (B, H, W, C), sampled in float32.
       homography_t2s: (B, 3, 3) mapping target pixels -> source pixels.
       out_hw: (Ho, Wo); defaults to the source size.
+      use_pallas, pallas_max_dy: the route (module docstring); on the
+        windowed route, samples more than ``pallas_max_dy`` rows from
+        their target row's base row are dropped (value and valid).
     Returns:
       warped (B, Ho, Wo, C) (0 outside the source) and valid
       (B, Ho, Wo, 1), the in-image bilinear mass; float32, differentiable
@@ -87,7 +96,12 @@ def homography_warp(image_src: torch.Tensor, homography_t2s: torch.Tensor,
     if out_hw is None:
         out_hw = image_src.shape[1:3]
     coords = homography_coords(homography_t2s, out_hw)
-    return GatherFn.apply(image_src.float().contiguous(), coords.contiguous())
+    # The window measures rows from row % H: it holds where the target's
+    # height is a multiple of the source's.
+    return GatherFn.apply(image_src.float().contiguous(), coords.contiguous(),
+                          route_max_dy(use_pallas, pallas_max_dy,
+                                       int(out_hw[0]) % image_src.shape[1]
+                                       == 0))
 
 
 def plane_sweep_volume(image_src: torch.Tensor, K_src: torch.Tensor,
@@ -97,7 +111,8 @@ def plane_sweep_volume(image_src: torch.Tensor, K_src: torch.Tensor,
     planes of the *target* camera (``depths`` (D,), target frame).
 
     The D warps share the source image, so their coordinates are folded
-    into the rows of one gather.
+    into the rows of one gather. It is always the exact gather: the
+    reference's plane sweep calls the warp without the route.
 
     Returns volume (B, D, Ho, Wo, C) and valid (B, D, Ho, Wo, 1).
     """

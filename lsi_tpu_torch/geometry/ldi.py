@@ -11,15 +11,20 @@ the soft z-buffer blend comes from the shared normalization of the
 Both are differentiable: the splat goes through
 ``kernels.splat_cuda.SplatFn`` and the gather through
 ``kernels.gather_cuda.GatherFn`` (the CUDA kernels for CUDA tensors, the
-plain versions for CPU tensors). The render is exact unless the caller
-asks for the TPU kernel's vertical window (``pallas_max_dy``), which the
-height-sharded render (``parallel.spatial``) is held to; the gather is
-exact.
+plain versions for CPU tensors). ``use_pallas`` picks the semantics, as
+``render.use_pallas`` does in the JAX package (:func:`resolve_use_pallas`):
+``"auto"`` (the default), ``"off"`` and False are exact, the JAX package's
+lax path; ``"on"`` and True are its TPU kernels' route, a vertical window
+of ``pallas_max_dy`` rows around each folded row's base row and snapped
+gather fractions, whose truncation ``window_dropped_frac`` reports
+(:func:`warn_window_drop` turns it into a warning). The height-sharded
+render (``parallel.spatial``) is held to the windowed render.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -28,7 +33,47 @@ from lsi_tpu_torch.geometry import projection
 from lsi_tpu_torch.kernels.gather_cuda import GatherFn
 from lsi_tpu_torch.kernels.splat_cuda import SplatFn
 from lsi_tpu_torch.ops.splat import snap_fraction
+from lsi_tpu_torch.parallel.reduce import batch_sum
 from lsi_tpu_torch.utils.helpers import divide_safe
+
+
+def resolve_use_pallas(flag) -> bool:
+    """Resolve a ``use_pallas`` value ("auto" | "on" | "off" | bool): True
+    for the TPU kernels' windowed route.
+
+    "auto" is exact, as it is in the JAX package off the TPU; "on" (or
+    True) takes the windowed route on either device: the CUDA kernels'
+    windowed modes on the card, their plain versions on the CPU. JAX's
+    ``LSI_TPU_FORCE_PALLAS`` has no counterpart: it exists because JAX's
+    kernels run interpreted off the TPU, and the port's do not.
+    """
+    if flag in (False, "off", "auto"):
+        return False
+    if flag in (True, "on"):
+        return True
+    raise ValueError(
+        f"use_pallas must be 'auto'|'on'|'off'|bool, got {flag!r}")
+
+
+#: ``window_dropped_frac`` above which :func:`warn_window_drop` warns.
+WINDOW_DROP_TOL = 1e-4
+
+
+def warn_window_drop(frac, max_dy: Optional[int] = None,
+                     tol: float = WINDOW_DROP_TOL) -> bool:
+    """Warn when the vertical window dropped content (``frac``, a
+    ``window_dropped_frac`` value or tensor, above ``tol``); returns
+    whether it warned (``lsi_tpu.geometry.ldi.warn_window_drop``)."""
+    frac = float(torch.as_tensor(frac).max())
+    if frac > tol:
+        extra = f" (pallas_max_dy={max_dy})" if max_dy is not None else ""
+        warnings.warn(
+            f"splat dy-window{extra} dropped {frac:.4%} of valid splat "
+            "contributions: the render is missing content. Raise "
+            "render.pallas_max_dy or set render.use_pallas='auto'.",
+            RuntimeWarning)
+        return True
+    return False
 
 
 @dataclasses.dataclass
@@ -133,10 +178,12 @@ def composite(accum: torch.Tensor, wsum: torch.Tensor):
 
 
 def window_dropped_fraction(coords: torch.Tensor, valid: torch.Tensor,
-                            out_hw, max_dy: int) -> torch.Tensor:
+                            out_hw, max_dy: int,
+                            data_group=None) -> torch.Tensor:
     """The share of valid, horizontally in-image splat corners' vertical
     tent mass that the ``max_dy`` window drops (base row ``row % out_h``);
-    ``lsi_tpu/geometry/ldi.py:_window_dropped_fraction``."""
+    ``lsi_tpu/geometry/ldi.py:_window_dropped_fraction``. With a
+    ``data_group`` (``parallel.reduce``) it is the global batch's share."""
     out_h, out_w = out_hw
     x, y = coords[..., 0], coords[..., 1]
     y0 = torch.floor(y)
@@ -147,13 +194,15 @@ def window_dropped_fraction(coords: torch.Tensor, valid: torch.Tensor,
     kept = ((1.0 - fy) * ((ky >= -max_dy) & (ky <= max_dy + 1))
             + fy * ((ky + 1 >= -max_dy) & (ky + 1 <= max_dy + 1)))
     rel = ((valid[..., 0] > 0) & (x > -1.0) & (x < out_w)).float()
-    return (rel * (1.0 - kept)).sum() / rel.sum().clamp_min(1.0)
+    return (batch_sum(rel * (1.0 - kept), data_group)
+            / batch_sum(rel, data_group).clamp_min(1.0))
 
 
 def render_forward(ldi: LDI, pose_src2trg: torch.Tensor,
                    K_trg: Optional[torch.Tensor] = None, out_hw=None,
-                   zbuffer_scale: float = 50.0,
-                   pallas_max_dy: Optional[int] = None):
+                   zbuffer_scale: float = 50.0, use_pallas="auto",
+                   pallas_max_dy: int = 2, check_window: bool = True,
+                   data_group=None):
     """Render an LDI into a novel view by forward splatting.
 
     Args:
@@ -162,44 +211,65 @@ def render_forward(ldi: LDI, pose_src2trg: torch.Tensor,
       K_trg: (B, 3, 3) target intrinsics; defaults to the LDI's.
       out_hw: (Ho, Wo) target size; defaults to the LDI's (H, W).
       zbuffer_scale: soft z-buffer sharpness (weight = exp(scale * d)).
-      pallas_max_dy: None (the default) splats exactly; an int drops every
-        corner more than that many rows from its source row's base row
-        (the TPU kernel's window, JAX's name; ``out_hw`` must be the
-        LDI's). ``parallel.spatial.render_forward_spatial`` equals this
+      use_pallas: "auto" (the default), "off" or False splat exactly;
+        "on" or True take the TPU kernels' route (:func:`resolve_use_pallas`):
+        every corner more than ``pallas_max_dy`` rows from its source
+        row's base row ``r % H`` is dropped. A render with ``out_hw`` other
+        than the LDI's is exact on either route, as in the JAX package.
+        ``parallel.spatial.render_forward_spatial`` equals the windowed
         render.
+      pallas_max_dy: the window, in rows (JAX's name).
+      check_window: on the windowed route, count the share of the splat
+        the window drops (:func:`window_dropped_fraction`; over the global
+        batch of ``data_group``'s ranks where one is given).
     Returns dict with:
       rgb (B, Ho, Wo, 3), disparity (B, Ho, Wo, 1), coverage (B, Ho, Wo, 1)
       (accumulated splat weight, 0 = hole), all float32, and
-      window_dropped_frac, a 0-d tensor: the share of the splat the window
-      drops (:func:`window_dropped_fraction`), 0 when exact.
+      window_dropped_frac, a 0-d tensor: that share, 0 when exact or
+      unchecked.
     """
     h, w = ldi.height, ldi.width
     out_hw = (h, w) if out_hw is None else tuple(out_hw)
     payload, coords, weights, valid = splat_inputs(ldi, pose_src2trg, K_trg,
                                                    zbuffer_scale)
-    if pallas_max_dy is None:
-        accum, wsum = SplatFn.apply(payload, coords, weights, out_hw)
-        dropped = torch.zeros((), device=wsum.device)
-    else:
-        if out_hw != (h, w):
-            raise ValueError(
-                f"the splat window measures rows from r % H; out_hw "
-                f"{out_hw} must be the LDI's {(h, w)}")
+    # The window measures rows from r % H, so it holds only where the
+    # target grid is the LDI's; other renders take the exact splat.
+    windowed = resolve_use_pallas(use_pallas) and out_hw == (h, w)
+    if windowed:
         accum, wsum = SplatFn.apply(payload, coords, weights, out_hw,
                                     pallas_max_dy)
+    else:
+        accum, wsum = SplatFn.apply(payload, coords, weights, out_hw)
+    if windowed and check_window:
         dropped = window_dropped_fraction(coords.detach(), valid, out_hw,
-                                          pallas_max_dy)
+                                          pallas_max_dy, data_group)
+    else:
+        dropped = torch.zeros((), device=wsum.device)
     return dict(composite(accum, wsum), window_dropped_frac=dropped)
+
+
+def route_max_dy(use_pallas, pallas_max_dy: int, windowable: bool) -> int:
+    """A gather's ``max_dy``: ``pallas_max_dy`` on the windowed route where
+    its shapes allow the window (``windowable``), else -1, the exact
+    gather, as JAX's route takes its lax path for other shapes."""
+    if resolve_use_pallas(use_pallas) and windowable:
+        return int(pallas_max_dy)
+    return -1
 
 
 def gather_target_per_layer_folded(ldi: LDI, target_image: torch.Tensor,
                                    pose_src2trg: torch.Tensor,
-                                   K_trg: Optional[torch.Tensor] = None):
+                                   K_trg: Optional[torch.Tensor] = None,
+                                   use_pallas="off",
+                                   pallas_max_dy: int = 2):
     """Folded (B*L, H, W, C) variant of :func:`gather_target_per_layer`.
 
     The gather reads the (B, Ht, Wt, C) target directly at the folded
     (B, L*H, W, 2) coordinates: no per-layer copy of the target. The
-    target is sampled in float32.
+    target is sampled in float32. On the windowed route (``use_pallas``
+    "on", a target of the LDI's size) the gather is the TPU kernel's:
+    fractions snapped, samples more than ``pallas_max_dy`` rows from their
+    row's base row dropped (value and valid).
 
     Returns (sampled (B*L, H, W, C), valid (B*L, H, W, 1) = in front of
     the target camera x in-image bilinear mass, trg_disp (B*L, H, W, 1)).
@@ -209,7 +279,9 @@ def gather_target_per_layer_folded(ldi: LDI, target_image: torch.Tensor,
         ldi, pose_src2trg, K_trg)
     sampled, in_bounds = GatherFn.apply(
         target_image.float().contiguous(),
-        trg_coords.reshape(b, l * h, w, 2).contiguous())
+        trg_coords.reshape(b, l * h, w, 2).contiguous(),
+        route_max_dy(use_pallas, pallas_max_dy,
+                     tuple(target_image.shape[1:3]) == (h, w)))
     sampled = sampled.reshape(b * l, h, w, -1)
     in_bounds = in_bounds.reshape(b * l, h, w, 1)
     return sampled, in_front * in_bounds, trg_disp

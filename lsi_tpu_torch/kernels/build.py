@@ -48,13 +48,13 @@ LIBRARIES = {
         "lsi_splat_vjp": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                           _INT, _I64, _I64, _INT, _I64, _I64, _P],
         # image, coords, sampled, valid, n, src_h, src_w, channels, img_h,
-        # img_w, row_groups, tile_rows, row_stride, stream
+        # img_w, row_groups, tile_rows, row_stride, max_dy, fold_h, stream
         "lsi_gather_fwd": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64,
-                           _I64, _INT, _INT, _INT, _P],
+                           _I64, _INT, _INT, _INT, _INT, _I64, _P],
         # image, coords, g_sampled, g_valid, d_coords, n, src_h, src_w,
-        # channels, img_h, img_w, stream
+        # channels, img_h, img_w, max_dy, fold_h, stream
         "lsi_gather_bwd_coords": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
-                                  _I64, _I64, _P],
+                                  _I64, _I64, _INT, _I64, _P],
     }),
 }
 

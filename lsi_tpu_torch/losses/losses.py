@@ -40,7 +40,9 @@ from lsi_tpu_torch.config import LossConfig, RenderConfig
 from lsi_tpu_torch.evaluation.metrics import ssim
 from lsi_tpu_torch.evaluation.occlusion import disocclusion_mask
 from lsi_tpu_torch.geometry.ldi import (LDI, project_layers_folded,
-                                        render_forward)
+                                        render_forward, resolve_use_pallas,
+                                        route_max_dy,
+                                        window_dropped_fraction)
 from lsi_tpu_torch.kernels.gather_cuda import GatherFn
 from lsi_tpu_torch.models.mpi import MPI, mpi_source_disparity, render_mpi
 from lsi_tpu_torch.geometry.transforms import invert_pose
@@ -79,7 +81,7 @@ def _charbonnier(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
 def _candidate_errors(ldi: LDI, target_image: torch.Tensor,
                       pose_src2trg: torch.Tensor,
                       K_trg: Optional[torch.Tensor], tex: torch.Tensor,
-                      radius: int):
+                      radius: int, render_cfg: RenderConfig):
     """The inverse warp's per-layer error with ``candidate_radius`` r: the
     min over the (2r+1)^2 integer offsets around each projection of the
     masked Charbonnier error, and the max of ``valid``.
@@ -91,7 +93,15 @@ def _candidate_errors(ldi: LDI, target_image: torch.Tensor,
     takes them, so ties split their gradient the same way. Radius 0 is
     the plain inverse warp: one offset, added nowhere.
 
-    Returns (err_masked (B*L, H, W, 1), valid (B*L, H, W, 1)).
+    On the windowed route (``render_cfg.use_pallas`` "on", a target of the
+    LDI's size) the gather is the TPU kernel's at a window of
+    ``pallas_max_dy + r`` rows, which absorbs the offsets; the stacked
+    rows keep their base row ``row % H``, so one launch still serves
+    every candidate.
+
+    Returns (err_masked (B*L, H, W, 1), valid (B*L, H, W, 1), and the
+    projection's coordinates (B, L*H, W, 2) and in-front mask
+    (B, L*H, W, 1)).
     """
     b, l, h, w, _ = ldi.textures.shape
     trg_coords, _, in_front = project_layers_folded(ldi, pose_src2trg, K_trg)
@@ -104,8 +114,11 @@ def _candidate_errors(ldi: LDI, target_image: torch.Tensor,
             dtype=torch.float32, device=trg_coords.device)
         coords = coords + offsets[None, :, None, None, :]
     coords = coords.reshape(b, k * l * h, w, 2)
+    max_dy = route_max_dy(render_cfg.use_pallas,
+                          render_cfg.pallas_max_dy + radius,
+                          tuple(target_image.shape[1:3]) == (h, w))
     sampled, in_bounds = GatherFn.apply(target_image.float().contiguous(),
-                                        coords.contiguous())
+                                        coords.contiguous(), max_dy)
 
     def per_offset(x):  # (B, K*L*H, W, C) -> (K, B*L, H, W, C)
         return x.reshape(b, k, l, h, w, -1).transpose(0, 1).reshape(
@@ -119,7 +132,8 @@ def _candidate_errors(ldi: LDI, target_image: torch.Tensor,
         e = torch.where(v > 0.5, e, BIG_ERROR)
         err_masked = e if err_masked is None else torch.minimum(err_masked, e)
         valid = v if valid is None else torch.maximum(valid, v)
-    return err_masked, valid
+    return (err_masked, valid, trg_coords.reshape(b, l * h, w, 2),
+            in_front.reshape(b, l * h, w, 1))
 
 
 def view_synthesis_inverse_warp(ldi: LDI, target_image: torch.Tensor,
@@ -128,6 +142,7 @@ def view_synthesis_inverse_warp(ldi: LDI, target_image: torch.Tensor,
                                 min_over_layers: bool = True,
                                 candidate_radius: int = 0,
                                 layer0_margin: float = 0.0,
+                                render_cfg: RenderConfig = RenderConfig(),
                                 return_diag: bool = False, data_group=None):
     """Gather-direction photometric loss, per-pixel min over layers.
 
@@ -137,14 +152,18 @@ def view_synthesis_inverse_warp(ldi: LDI, target_image: torch.Tensor,
     invalid in every layer are masked out. With ``candidate_radius`` r > 0
     the error is also the min over the (2r+1)^2 integer-offset samples
     around each projection (it forgives sub-pixel correspondence error).
-    With ``return_diag``, returns ``(loss, {})``: the port's gather has no
-    window to diagnose. ``data_group``: the data-parallel ranks whose
+    ``render_cfg`` picks the gather's route (:func:`_candidate_errors`).
+    With ``return_diag``, returns ``(loss, diag)``: ``diag`` holds the
+    gather window's ``window_dropped_frac`` on the windowed route with
+    ``render_cfg.window_check`` and radius 0, and is empty otherwise, as
+    in the JAX package. ``data_group``: the data-parallel ranks whose
     batches make the global batch (module docstring).
     """
     b, l, h, w, _ = ldi.textures.shape
     tex = ldi.textures.float().reshape(b * l, h, w, 3)
-    err_masked, valid = _candidate_errors(
-        ldi, target_image, pose_src2trg, K_trg, tex, candidate_radius)
+    err_masked, valid, trg_coords, in_front = _candidate_errors(
+        ldi, target_image, pose_src2trg, K_trg, tex, candidate_radius,
+        render_cfg)
     err_masked = err_masked.reshape(b, l, h, w, 1)
     valid = valid.reshape(b, l, h, w, 1)
     if min_over_layers:
@@ -164,7 +183,16 @@ def view_synthesis_inverse_warp(ldi: LDI, target_image: torch.Tensor,
     per_pixel = torch.where(any_valid > 0.5, per_pixel, 0.0)
     loss = divide_safe(batch_sum(per_pixel, data_group),
                        batch_sum(any_valid, data_group))
-    return (loss, {}) if return_diag else loss
+    if not return_diag:
+        return loss
+    diag = {}
+    if (render_cfg.window_check and candidate_radius == 0
+            and resolve_use_pallas(render_cfg.use_pallas)
+            and tuple(target_image.shape[1:3]) == (h, w)):
+        diag["window_dropped_frac"] = window_dropped_fraction(
+            trg_coords.detach(), in_front.detach(), (h, w),
+            render_cfg.pallas_max_dy, data_group)
+    return loss, diag
 
 
 def view_synthesis_splat(ldi: LDI, target_image: torch.Tensor,
@@ -176,11 +204,16 @@ def view_synthesis_splat(ldi: LDI, target_image: torch.Tensor,
     """Scatter-direction photometric loss on the soft-z composite render,
     masked by splat coverage. With ``ssim_weight`` alpha > 0 it is the
     monodepth mix alpha * (1 - SSIM) / 2 + (1 - alpha) * Charbonnier, the
-    SSIM masked by coverage too. With ``return_diag``, returns
-    ``(loss, {"window_dropped_frac": 0})`` as the JAX lax path does."""
+    SSIM masked by coverage too. The render takes ``render_cfg``'s route.
+    With ``return_diag``, returns ``(loss, {"window_dropped_frac": f})``,
+    the render's (0 on the exact route or without ``window_check``)."""
     out = render_forward(ldi, pose_src2trg, K_trg=K_trg,
                          out_hw=tuple(target_image.shape[1:3]),
-                         zbuffer_scale=render_cfg.zbuffer_scale)
+                         zbuffer_scale=render_cfg.zbuffer_scale,
+                         use_pallas=render_cfg.use_pallas,
+                         pallas_max_dy=render_cfg.pallas_max_dy,
+                         check_window=render_cfg.window_check,
+                         data_group=data_group)
     covered = (out["coverage"] > 0).float()
     trg32 = target_image.float()
     err = _charbonnier(out["rgb"] - trg32).mean(-1, keepdim=True)
@@ -254,15 +287,18 @@ def depth_consistency(ldi_src: LDI, ldi_trg: LDI,
         ldi_src = dataclasses.replace(
             ldi_src, disparities=torch.cat([d[:, :1].detach(), d[:, 1:]], 1))
     out_hw = tuple(ldi_trg.disparities.shape[2:4])
+    route = dict(zbuffer_scale=render_cfg.zbuffer_scale,
+                 use_pallas=render_cfg.use_pallas,
+                 pallas_max_dy=render_cfg.pallas_max_dy)
     out = render_forward(ldi_src, pose_src2trg, K_trg=K_trg, out_hw=out_hw,
-                         zbuffer_scale=render_cfg.zbuffer_scale)
+                         check_window=False, **route)
     wsum = out["coverage"]
     disp_num = out["disparity"] * wsum  # the accumulated disparity mass
     rendered_disp = divide_safe(disp_num, wsum, eps=1e-30)
     mask = (wsum > 1e-30).float()
     if disocc_only or visible_only:
         disocc = disocclusion_mask(ldi_src, pose_src2trg, out_hw=out_hw,
-                                   zbuffer_scale=render_cfg.zbuffer_scale)
+                                   **route)
         mask = mask * (disocc if disocc_only else 1.0 - disocc)
     target = ldi_trg.disparities[:, 0]
     if stop_target:
@@ -302,8 +338,8 @@ def total_loss(ldi: LDI, target_image: torch.Tensor,
             ldi, target_image, pose_src2trg, K_trg,
             min_over_layers=loss_cfg.min_over_layers,
             candidate_radius=loss_cfg.candidate_radius,
-            layer0_margin=loss_cfg.min_layer0_margin, return_diag=True,
-            data_group=data_group)
+            layer0_margin=loss_cfg.min_layer0_margin, render_cfg=render_cfg,
+            return_diag=True, data_group=data_group)
         parts["photo_inverse_warp"] = loss_cfg.inverse_warp_weight * inv_loss
         diags.update(inv_diag)
     if loss_cfg.photo_mode in ("splat", "both"):
@@ -410,6 +446,7 @@ def mpi_total_loss(mpi: MPI, src_image: torch.Tensor,
                    gt_disparity: Optional[torch.Tensor] = None,
                    gt_valid: Optional[torch.Tensor] = None,
                    alpha_coverage_weight: float = 1.0,
+                   render_cfg: RenderConfig = RenderConfig(use_pallas="off"),
                    data_group=None) -> Dict[str, torch.Tensor]:
     """The MPI baseline's training loss: ``{"total", parts...}``.
 
@@ -421,11 +458,14 @@ def mpi_total_loss(mpi: MPI, src_image: torch.Tensor,
       disparity (``smoothness_weight`` > 0);
     * ``depth_supervision``: Charbonnier of that disparity against ground
       truth, where the batch has it (``depth_supervision_weight`` > 0).
+    ``render_cfg`` picks the warp's route (``models.mpi.render_mpi``).
     With a ``data_group`` the parts are the global batch's (module
     docstring).
     """
     out = render_mpi(mpi, pose_src2trg, K_trg=K_trg,
-                     out_hw=tuple(target_image.shape[1:3]))
+                     out_hw=tuple(target_image.shape[1:3]),
+                     use_pallas=render_cfg.use_pallas,
+                     pallas_max_dy=render_cfg.pallas_max_dy)
     err = _charbonnier(out["rgb"] - target_image.float()).mean(
         -1, keepdim=True)
     parts = {

@@ -127,12 +127,15 @@ def mpi_source_disparity(mpi: MPI) -> torch.Tensor:
 
 
 def render_mpi(mpi: MPI, pose_src2trg: torch.Tensor,
-               K_trg: Optional[torch.Tensor] = None, out_hw=None):
+               K_trg: Optional[torch.Tensor] = None, out_hw=None,
+               use_pallas="off", pallas_max_dy: int = 2):
     """Render an MPI into a novel view (gather only, differentiable).
 
     Warps every plane into the target camera through its plane-induced
-    homography (all D planes in one gather) and over-composites near to
-    far: C = sum_d c_d a_d prod_{d' < d} (1 - a_d').
+    homography (all D planes in one gather, on the route ``use_pallas``
+    and ``pallas_max_dy`` pick: ``geometry.homography.homography_warp``)
+    and over-composites near to far: C = sum_d c_d a_d prod_{d' < d}
+    (1 - a_d').
     Returns dict(rgb (B, Ho, Wo, 3), alpha (accumulated opacity) and
     disparity (B, Ho, Wo, 1)), float32.
     """
@@ -150,7 +153,8 @@ def render_mpi(mpi: MPI, pose_src2trg: torch.Tensor,
                              rep(pose_src2trg), normal, mpi.depths.repeat(b))
     planes = torch.cat([mpi.colors.float(), mpi.alphas.float()], dim=-1)
     warped, valid = homography_warp(planes.reshape(b * d, h, w, 4), h_t2s,
-                                    (oh, ow))
+                                    (oh, ow), use_pallas=use_pallas,
+                                    pallas_max_dy=pallas_max_dy)
     warped = warped.reshape(b, d, oh, ow, 4)
     a = clip01(warped[..., 3:4]) * valid.reshape(b, d, oh, ow, 1)
     wgt = _exclusive_transmittance(a) * a              # (B, D, Ho, Wo, 1)

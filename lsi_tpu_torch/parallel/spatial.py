@@ -15,8 +15,10 @@ band lands in the halo. The halo strips go to the neighbours, which add
 them to their own rows (the edge strips, outside the image, are dropped),
 and only then is the composite normalised. The result equals the
 single-device render with the same window
-(``geometry.ldi.render_forward(..., pallas_max_dy=...)``), whose splat
-inputs (``geometry.ldi.splat_inputs``) it builds for its rows.
+(``geometry.ldi.render_forward(..., use_pallas="on", pallas_max_dy=...)``),
+whose splat inputs (``geometry.ldi.splat_inputs``) it builds for its rows.
+The window is the same under either ``render.use_pallas`` route: a
+height shard needs it whatever the route.
 
 The exchange is differentiable (:class:`HaloExchange`: its backward sends
 the cotangent strips back, as ``ppermute`` transposes), so the LDI
@@ -98,7 +100,7 @@ def render_forward_spatial(ldi: LDI, pose_src2trg: torch.Tensor,
                            K_trg: Optional[torch.Tensor] = None,
                            zbuffer_scale: float = 50.0,
                            pallas_max_dy: int = 2):
-    """Height-sharded ``geometry.ldi.render_forward(...,
+    """Height-sharded ``geometry.ldi.render_forward(..., use_pallas="on",
     pallas_max_dy=pallas_max_dy)`` with halo exchange.
 
     Args:

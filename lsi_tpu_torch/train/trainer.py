@@ -64,7 +64,7 @@ from lsi_tpu_torch.device import resolve_device
 from lsi_tpu_torch.evaluation.runner import (build_eval_step,
                                              eval_data_config,
                                              export_image_grid, to_floats)
-from lsi_tpu_torch.geometry.ldi import LDI
+from lsi_tpu_torch.geometry.ldi import LDI, warn_window_drop
 from lsi_tpu_torch.losses.losses import (check_loss_config, mpi_total_loss,
                                          total_loss,
                                          total_loss_bidirectional)
@@ -283,7 +283,8 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
             parts = mpi_total_loss(
                 pred, batch.src_image, batch.trg_image, batch.pose_src2trg,
                 cfg.loss, gt_disparity=batch.gt_disparity,
-                gt_valid=batch.gt_valid, data_group=data_group)
+                gt_valid=batch.gt_valid, render_cfg=cfg.render,
+                data_group=data_group)
         elif two_predictions and not stage_layer0:
             pred, pred_trg = apply_model_pair(
                 state.net, batch.src_image, batch.trg_image, batch.intrinsics,
@@ -316,8 +317,11 @@ def make_train_step(cfg: Config, stage_layer0: bool = False,
     """Build ``step_fn(state, batch) -> (state, metrics)``.
 
     ``metrics`` holds the loss parts, ``total``, ``window_dropped_frac``
-    (always 0: the port's splat is exact) and ``grad_norm``, as 0-d
-    tensors on the state's device. The update is the profiler range
+    (the share of the content the vertical window of
+    ``render.use_pallas="on"`` drops: the splat loss's render's, or with
+    ``photo_mode="inverse_warp"`` the gather's, as in the JAX package; 0
+    from the exact route's splat, absent from its gather) and
+    ``grad_norm``, as 0-d tensors on the state's device. The update is the profiler range
     ``train_step/optimizer``.
 
     With ``stage_layer0`` the loss sees only layer 0 of the prediction, so
@@ -779,6 +783,7 @@ class Trainer:
             profiler.start()
 
         last_metrics: Dict[str, Any] = {}
+        window_warned = False
         t_last, steps, frames = time.perf_counter(), 0, 0
         try:
             for step in range(start_step, max_steps):
@@ -804,6 +809,12 @@ class Trainer:
                         raise FloatingPointError(
                             f"non-finite loss at step {step + 1}: {metrics} "
                             f"(params dumped to {dump})")
+                    if (self.is_main and not window_warned
+                            and "window_dropped_frac" in metrics):
+                        # The windowed route truncating content: warn once.
+                        window_warned = warn_window_drop(
+                            metrics["window_dropped_frac"],
+                            cfg.render.pallas_max_dy)
                     now = time.perf_counter()
                     metrics["steps_per_sec"] = steps / (now - t_last)
                     metrics["frames_per_sec"] = frames / (now - t_last)

@@ -53,6 +53,13 @@ from lsi_tpu_torch.ops.splat import snap_fraction  # noqa: E402
 from lsi_tpu_torch.train.trainer import create_state, make_train_step  # noqa: E402
 
 
+# The parent's K1 and lsi_splat_vjp end their arguments with a window
+# (max_dy, fold_h, base_offset), here none; its gathers take no window
+# (this tree's take max_dy and fold_h, -1 for none, their wrappers'
+# default).
+NO_WINDOW = (-1, 1, 0)
+
+
 def load_parent_build(parent: Path):
     """The parent tree's ``kernels/build.py`` as its own module: it builds
     and loads the parent's libraries from the parent's ``csrc/``."""
@@ -222,7 +229,8 @@ def main() -> None:
         pb.launch("splat_fwd", "lsi_splat_fwd", dev, values.data_ptr(),
                   coords.data_ptr(), weights.data_ptr(), acc.data_ptr(),
                   wsum.data_ptr(), n, hs, ws, c, *out_hw, int(snap),
-                  t.block[0], t.tile[0], t.smem_bytes, int(t.vec4))
+                  t.block[0], t.tile[0], t.smem_bytes, int(t.vec4),
+                  *NO_WINDOW)
         return acc, wsum
 
     def parent_gather(image, coords):
@@ -242,7 +250,7 @@ def main() -> None:
         pb.launch("splat_bwd", "lsi_splat_vjp", dev, values.data_ptr(),
                   coords.data_ptr(), weights.data_ptr(), g_acc.data_ptr(),
                   g_ws.data_ptr(), *(t.data_ptr() for t in outs), n, hs, ws,
-                  c, *out_hw)
+                  c, *out_hw, *NO_WINDOW)
         return outs
 
     def parent_gather_bwd(image, coords, g_s, g_v):

@@ -133,11 +133,25 @@ def test_golden_fixture_on_cpu():
                                          ("use_pallas", "off"),
                                          ("splat_method", "sort")])
 def test_render_rejects_tpu_only_config(field, value):
+    """``splat_method="sort"`` stays a TPU-only choice and raises;
+    ``use_pallas`` "off" renders as "auto" (exact) and "on" takes the
+    windowed route of ``render_forward``."""
     tm = tapi.LSIModel.init(0, toy_config(tconfig), H, W, device="cpu")
-    ldi = tm.predict_ldi(torch.zeros(1, H, W, 3))
+    ldi = tm.predict_ldi(torch.rand(1, H, W, 3,
+                                    generator=torch.Generator().manual_seed(0)))
+    pose = torch.from_numpy(np.array(jtf.translation_pose([[-0.2, 0.1, 0]])))
     cfg = dataclasses.replace(tconfig.RenderConfig(), **{field: value})
-    with pytest.raises(ValueError):
-        tapi.render(ldi, torch.eye(4)[None], config=cfg)
+    if field == "splat_method":
+        with pytest.raises(ValueError):
+            tapi.render(ldi, pose, config=cfg)
+        return
+    got = tapi.render(ldi, pose, config=cfg)
+    want = render_forward(ldi, pose, zbuffer_scale=cfg.zbuffer_scale,
+                          use_pallas=value,
+                          pallas_max_dy=cfg.pallas_max_dy)["rgb"]
+    assert torch.equal(got, want)
+    if value == "off":
+        assert torch.equal(got, tapi.render(ldi, pose))
 
 
 def test_render_ignores_window_fields():

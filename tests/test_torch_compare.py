@@ -72,12 +72,24 @@ def test_table_rows_equal_evaluate_on_each_trained_net(run):
 
 
 def test_comparison_config_keeps_the_render_window_off():
-    """JAX's script widens pallas_max_dy on multi scenes, a Pallas-only
-    knob; the port's render is unwindowed either way and leaves it."""
+    """The port's comparison config is the JAX script's
+    (``scripts/compare_ldi_mpi.py``): on multi scenes it widens
+    ``render.pallas_max_dy`` to 8 and leaves the route at the preset's
+    "auto", so the window stays off unless ``render.use_pallas=on`` is
+    set; on two-plane scenes the render config is the preset's."""
+    from lsi_tpu.config import RenderConfig as JRenderConfig
+    from lsi_tpu.config import get_config as jget_config
     for name, _ in compare.PRESETS:
-        cfg = compare.comparison_config(name, 5, "multi", TOY, "/nowhere")
-        base = compare.build_config(name, TOY)
-        assert cfg.render == base.render
-        assert cfg.train == dataclasses.replace(
-            base.train, max_steps=5, log_every=50, eval_every=0,
-            checkpoint_every=5, checkpoint_dir="/nowhere")
+        for scene in ("multi", "two_plane"):
+            cfg = compare.comparison_config(name, 5, scene, TOY, "/nowhere")
+            base = compare.build_config(name, TOY)
+            jrender = jget_config(name).render
+            if scene == "multi":
+                jrender = dataclasses.replace(jrender, pallas_max_dy=8)
+            assert isinstance(jrender, JRenderConfig)
+            assert dataclasses.asdict(cfg.render) == dataclasses.asdict(
+                jrender)
+            assert cfg.render.use_pallas == base.render.use_pallas == "auto"
+            assert cfg.train == dataclasses.replace(
+                base.train, max_steps=5, log_every=50, eval_every=0,
+                checkpoint_every=5, checkpoint_dir="/nowhere")

@@ -794,3 +794,157 @@ def test_window_arguments_raise_before_a_launch(cuda):
     with pytest.raises(ValueError, match="inside the target"):
         splat_cuda.splat(*args, out_hw, max_dy=1, fold_h=8, base_offset=7)
     assert splat_cuda.splat.launches == before
+
+
+# ------------------------------------------ K4-W: the windowed, snapped gather
+
+def windowed_gather_case(seed, c, layers, max_dy, n=2, hi=16, wi=96):
+    """An image and coordinates folding ``layers`` layers of it, each row
+    within +-(max_dy + 2) rows of its base row (the window drops corners),
+    10% of the fractions in the snap zones, 2% at +-1e6."""
+    rng = np.random.default_rng(seed)
+    hs = layers * hi
+    image = rng.uniform(size=(n, hi, wi, c)).astype(np.float32)
+    x = np.arange(wi)[None, None, :] + rng.uniform(-6, 6, (n, hs, wi))
+    y = ((np.arange(hs) % hi)[None, :, None]
+         + rng.uniform(-(max_dy + 2), max_dy + 2, (n, hs, wi)))
+    for a in (x, y):
+        near = rng.uniform(size=a.shape) < 0.1
+        a[near] = np.round(a[near]) + rng.choice([-3e-5, 3e-5], near.sum())
+    x[rng.uniform(size=x.shape) < 0.02] = 1e6
+    return image, np.stack([x, y], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("max_dy", [0, 2, 8])
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+def test_windowed_gather_fn_matches_plain(cuda, c, max_dy, layers):
+    """GatherFn windowed (lsi_gather_fwd and lsi_gather_bwd_coords with
+    max_dy >= 0, K1 snapped and windowed for the image) against autograd
+    through the plain windowed gather on the card; the coordinate gradient
+    exactly 0 in the snap zones."""
+    image, coords = windowed_gather_case(50 + c, c, layers, max_dy)
+    results = []
+    for fn in (gather_cuda.GatherFn.apply,
+               lambda i, x, m: bilinear_sample(i, x, max_dy=m)):
+        img = torch.from_numpy(image).to(cuda).requires_grad_()
+        crd = torch.from_numpy(coords).to(cuda).requires_grad_()
+        outs = fn(img, crd, max_dy)
+        cots = cotangents_like(12, *outs)
+        results.append((outs, torch.autograd.grad(outs, (img, crd), cots)))
+    torch.cuda.synchronize()
+    (outs, grads), (ref_outs, ref_grads) = results
+    for got, want in zip(outs, ref_outs):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    for got, want in zip(grads, ref_grads):
+        atol = 1e-5 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+    f = coords - np.floor(coords)
+    zone = torch.from_numpy((f < 1e-4) | (f > 1 - 1e-4)).to(cuda)
+    assert bool(zone.any())
+    assert float(grads[1][zone].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3])
+def test_windowed_gather_tilings_are_bitwise_equal(cuda, rows):
+    """The windowed forward under any rows per block: the base row is the
+    row's own, so the results do not depend on the tiling."""
+    image, coords = (torch.from_numpy(a).to(cuda)
+                     for a in windowed_gather_case(60, 3, 3, 1))
+    ref = gather_cuda.gather_fwd(image, coords, 1)
+    t = gather_cuda.gather_tiling(image.shape, coords.shape,
+                                  max_tile_rows=rows)
+    got = gather_cuda._launch_gather_fwd(image, coords, t, window=(1, 16))
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_wide_window_equals_the_exact_gather_kernel(cuda):
+    """Away from the snap zones, a window that drops nothing gives what
+    the exact kernels give, forward and coordinate backward."""
+    rng = np.random.default_rng(61)
+    image = torch.from_numpy(rng.uniform(size=(2, 16, 96, 3)).astype(
+        np.float32)).to(cuda)
+    x = np.arange(96)[None, None, :] + rng.uniform(-6, 6, (2, 32, 96))
+    y = (np.arange(32) % 16)[None, :, None] + rng.uniform(-1, 1, (2, 32, 96))
+    coords = np.stack([x, y], -1)
+    f = coords - np.floor(coords)
+    coords = np.where((f < 1e-3) | (f > 1 - 1e-3), coords + 0.01, coords)
+    coords = torch.from_numpy(coords.astype(np.float32)).to(cuda)
+    wide = gather_cuda.gather_fwd(image, coords, 20)
+    exact = gather_cuda.gather_fwd(image, coords)
+    cots = cotangents_like(13, *exact)
+    d_wide = gather_cuda.gather_bwd_coords(image, coords, *cots, 20)
+    d_exact = gather_cuda.gather_bwd_coords(image, coords, *cots)
+    torch.cuda.synchronize()
+    for g, r in zip(wide + (d_wide,), exact + (d_exact,)):
+        torch.testing.assert_close(g, r, rtol=1e-6, atol=1e-7)
+
+
+def test_windowed_gather_kernels_count_and_refuse_bad_windows(cuda):
+    """Windowed launches count in ``launches`` and ``window_launches``; a
+    bad window raises ValueError in the wrapper, and the entry points
+    themselves refuse one (cudaErrorInvalidValue) when called around the
+    wrapper's check."""
+    from lsi_tpu_torch.kernels import build
+    image, coords = (torch.from_numpy(a).to(cuda)
+                     for a in windowed_gather_case(62, 3, 2, 1))
+    fwd, bwd = gather_cuda.gather_fwd, gather_cuda.gather_bwd_coords
+    before = (fwd.launches, fwd.window_launches, bwd.launches,
+              bwd.window_launches)
+    s, v = fwd(image, coords, 1)
+    bwd(image, coords, torch.ones_like(s), torch.ones_like(v), 1)
+    fwd(image, coords)
+    assert (fwd.launches, fwd.window_launches, bwd.launches,
+            bwd.window_launches) == (before[0] + 2, before[1] + 1,
+                                     before[2] + 1, before[3] + 1)
+    with pytest.raises(ValueError):
+        fwd(image, coords, 1, 5)
+    n, hs, ws, _ = coords.shape
+    with pytest.raises(RuntimeError, match="cudaError"):
+        build.launch("splat_bwd", "lsi_gather_fwd", cuda, image.data_ptr(),
+                     coords.data_ptr(), s.data_ptr(), v.data_ptr(), n, hs,
+                     ws, 3, 16, 96, hs, 1, 1, 1, 5)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        build.launch("splat_bwd", "lsi_gather_bwd_coords", cuda,
+                     image.data_ptr(), coords.data_ptr(), s.data_ptr(),
+                     v.data_ptr(), torch.empty_like(coords).data_ptr(), n,
+                     hs, ws, 3, 16, 96, 1, 64)
+
+
+def test_route_on_cuda_matches_cpu(cuda):
+    """A toy kitti_ldi3_b16 step on the route (render.use_pallas="on") on
+    the card and on the CPU from the same params and batch: every kernel
+    launched once, windowed, and the same loss parts and
+    window_dropped_frac."""
+    cfg = get_config("kitti_ldi3_b16")
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, base_filters=8,
+                                       num_scales=2, compute_dtype="float32"),
+        data=dataclasses.replace(cfg.data, dataset="synthetic",
+                                 synthetic_scene="multi", height=32,
+                                 width=64, batch_size=2),
+        render=dataclasses.replace(cfg.render, use_pallas="on",
+                                   pallas_max_dy=0))
+    batch = next(batch_stream(cfg.data, device="cpu"))
+    metrics = {}
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda):
+            state = create_state(cfg, seed=0, device=dev)
+            counts = [(k.launches, k.window_launches) for k in KERNELS]
+            b = Batch(**{f.name: getattr(batch, f.name).to(dev)
+                         for f in dataclasses.fields(Batch)})
+            _, metrics[str(dev)] = make_train_step(cfg)(state, b)
+            launched = [(k.launches - n, k.window_launches - m)
+                        for k, (n, m) in zip(KERNELS, counts)]
+            assert launched == ([(0, 0)] * 4 if dev == "cpu"
+                                else [(1, 1)] * 4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    assert float(metrics["cpu"]["window_dropped_frac"]) > 0
+    for k, v in metrics["cpu"].items():
+        np.testing.assert_allclose(float(metrics[str(cuda)][k]), float(v),
+                                   rtol=1e-3, atol=1e-6, err_msg=k)

@@ -129,21 +129,22 @@ def test_candidate_loss_on_rotated_views_matches_jax(rng):
 
 
 def test_candidate_gathers_are_one_stacked_call(rng, monkeypatch):
-    """r = 1 gathers the target once, at 9 offsets of every folded row."""
+    """r = 1 gathers the target once, at 9 offsets of every folded row,
+    exact (max_dy -1) on the default route."""
     tex, disp, K, pose, target, _, _ = ldi_case(rng)
     calls = []
     apply = gather_cuda.GatherFn.apply
 
-    def counting(image, coords):
-        calls.append((tuple(image.shape), tuple(coords.shape)))
-        return apply(image, coords)
+    def counting(image, coords, *window):
+        calls.append((tuple(image.shape), tuple(coords.shape), window))
+        return apply(image, coords, *window)
 
     monkeypatch.setattr(tlosses.GatherFn, "apply", counting)
     tlosses.view_synthesis_inverse_warp(
         LDI(*map(torch.from_numpy, (tex, disp, K))),
         torch.from_numpy(target), torch.from_numpy(pose), candidate_radius=1)
     b, l, h, w, _ = tex.shape
-    assert calls == [((b, h, w, 3), (b, 9 * l * h, w, 2))]
+    assert calls == [((b, h, w, 3), (b, 9 * l * h, w, 2), (-1,))]
 
 
 @pytest.mark.parametrize("weight", [0.85, 0.3])

@@ -229,7 +229,8 @@ def test_windowed_render_matches_the_spatial_render(grids, case):
     ldi = LDI(*(torch.from_numpy(arrays[k])
                 for k in ("textures", "disparities", "intrinsics")))
     out = render_forward(ldi, torch.tensor(pose_of(t, 1)),
-                         zbuffer_scale=ZSCALE, pallas_max_dy=max_dy)
+                         zbuffer_scale=ZSCALE, use_pallas="on",
+                         pallas_max_dy=max_dy)
     for key in ("rgb", "disparity", "coverage"):
         np.testing.assert_allclose(out[key].numpy(),
                                    assemble(ranks, key, 1, 32), **TOL)
@@ -237,9 +238,11 @@ def test_windowed_render_matches_the_spatial_render(grids, case):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_windowed_render_matches_jax(case):
-    """``render_forward(..., pallas_max_dy=)`` (one process) against JAX's
-    windowed render, and its ``window_dropped_frac`` against JAX's count
-    of the dropped tent mass on the same projection."""
+    """``render_forward(..., use_pallas="on", pallas_max_dy=)`` (one
+    process) against JAX's windowed render, and its ``window_dropped_frac``
+    against JAX's count of the dropped tent mass on the same projection;
+    a render at another ``out_hw`` takes the exact splat, as JAX's route
+    does."""
     rng = np.random.default_rng(3)
     arrays = make_ldi(rng, b=2)
     t, max_dy = CASES[case]
@@ -247,7 +250,7 @@ def test_windowed_render_matches_jax(case):
     ldi = LDI(*(torch.from_numpy(arrays[k])
                 for k in ("textures", "disparities", "intrinsics")))
     out = render_forward(ldi, torch.from_numpy(pose), zbuffer_scale=ZSCALE,
-                         pallas_max_dy=max_dy)
+                         use_pallas="on", pallas_max_dy=max_dy)
     jldi = j_ldi(arrays)
     want = jax_windowed_render(jldi, jnp.asarray(pose), max_dy)
     for key in ("rgb", "disparity", "coverage"):
@@ -266,9 +269,14 @@ def test_windowed_render_matches_jax(case):
     # Only the motion beyond the window drops tent mass.
     assert (float(out["window_dropped_frac"]) > 0.0) == (
         case == "beyond_window")
-    with pytest.raises(ValueError, match="must be the LDI's"):
-        render_forward(ldi, torch.from_numpy(pose), out_hw=(h + 2, w),
-                       pallas_max_dy=max_dy)
+    other = render_forward(ldi, torch.from_numpy(pose), out_hw=(h + 2, w),
+                           zbuffer_scale=ZSCALE, use_pallas="on",
+                           pallas_max_dy=max_dy)
+    exact = render_forward(ldi, torch.from_numpy(pose), out_hw=(h + 2, w),
+                           zbuffer_scale=ZSCALE)
+    for key in ("rgb", "disparity", "coverage"):
+        assert torch.equal(other[key], exact[key])
+    assert float(other["window_dropped_frac"]) == 0.0
 
 
 def test_spatial_rejects_thin_shards():

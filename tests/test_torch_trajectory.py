@@ -163,7 +163,7 @@ def test_given_poses_match_jax(exact):
     poses = camera_trajectory(11, (0.2, -0.03, 0.05))
     want, _ = jtraj._render_poses(jldi, jnp.asarray(poses.numpy()),
                                   JRenderConfig(), chunk=4)
-    got = ttraj._render_poses(tldi, poses, RenderConfig(), chunk=4)
+    got, _ = ttraj._render_poses(tldi, poses, RenderConfig(), chunk=4)
     assert got.shape == (11, 2, H, W, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=FRAME_ATOL, rtol=0)
