@@ -16,8 +16,9 @@ and no result line:
 
 1. device  — require CUDA; card name and power limit, torch/CUDA/nvcc.
 2. build   — build every kernel library from lsi_tpu_torch/csrc, one nvcc
-             per library, all started together: splat_fwd (K1) and
-             splat_bwd (lsi_splat_vjp, lsi_gather_fwd,
+             per source, all started together: splat_fwd (K1: the box
+             kernel lsi_splat_fwd, and the band kernel lsi_splat_band, its
+             windowed mode) and splat_bwd (lsi_splat_vjp, lsi_gather_fwd,
              lsi_gather_bwd_coords).
 3. kernel  — K1 against the plain index_add_ splat on the card, at the
              render's shape (N=8, Hs=512, Ws=768, C=4), with out-of-image
@@ -56,7 +57,8 @@ and no result line:
              on the card (float32, TF32 off) against the JAX numbers in
              tests/data/torch_golden_quality_toy.npz (loss parts with
              depth_consistency, depth_anchor and the _rev terms; step-1
-             gradients); whether K1 keeps a float32 denormal weight (H12).
+             gradients); whether K1 keeps a float32 denormal weight (H12):
+             the box kernel's two paths and the band kernel must flush it.
 13. quality — python -m lsi_tpu_torch.train --config=kitti_ldi3_quality,
              called in-process at the preset's widths (256x768, batch 8,
              L=3, base_filters=32, num_scales=5, bf16) on multi-object
@@ -96,7 +98,8 @@ and no result line:
              candidate gather held to the plain gather (forward and
              coordinate VJP) on the step's own inputs.
 18. timing — the MPI step at b8 (ms, steps/s, peak memory) and its eval
-             step per batch; lsi_gather_fwd and K1 in its d_image role on
+             step per batch; lsi_gather_fwd and K1 in its d_image role (no
+             weights, no wsum) on
              the MPI step's own inputs, each beside its plain version, its
              bound and F.grid_sample (forward; backward for the input);
              the b16 step with the loss options in turns with the plain
@@ -104,7 +107,9 @@ and no result line:
              inputs beside grid_sample (forward; backward for the grid).
 
 19. window  — K1 and lsi_splat_vjp in their windowed mode (max_dy,
-             fold_h, base_offset) on one shard's own inputs (shard 1 of 4
+             fold_h, base_offset; K1 as splat launches it, and its box and
+             band kernels side by side) on one shard's own inputs (shard
+             1 of 4
              of the kitti_ldi2 b8 LDI at 256x768, as
              render_forward_spatial builds them) against the plain
              windowed splat and its autograd VJP, at phases 3 and 7's
@@ -207,7 +212,11 @@ measure no multi-GPU scaling.
              two quality and two MPI steps); (d) kitti_ldi2 serving b8 on
              the route beside "auto" (an over-rotated pose warns), the
              trajectory sweep (window 16), mpi_baseline for 3 steps
-             (homography gather at 2).
+             (homography gather at 2); the windowed K1 as splat launches
+             it (splat_cuda.use_band's choice) and its box and band
+             kernels side by side, held and timed on the route step's,
+             the MPI step's (the planes' gradient), the serving render's
+             and the sweep's own inputs.
 
 The line before the last two is {"kernels": [...]}, then the card's name
 and power limit as nvidia-smi prints them, and last
@@ -218,10 +227,12 @@ windowed modes' count phase 20's ranks and phase 29's main paths (its CLI
 run, serving, MPI steps and sweep), the highres entries phases 26 and
 27's. Every entry's ``ms`` and ``plain_ms`` are CUDA-event time per call
 (host work in the wrapper included; the highres entries' plain versions
-run chunk by chunk); the windowed entries (``*_window``: K1 and K2 timed
-on the route step's own full-width inputs, K4-W's two kernels on the same
-step's gather) also carry ``device_ms``, the kernel alone by
-torch.profiler (null where its trace missed launches twice).
+run chunk by chunk); the windowed entries (``splat_fwd_window``, the
+box kernel's window, and ``splat_vjp_window`` timed on the route step's
+own full-width inputs, ``splat_band``, the band kernel, on the route MPI
+step's own, K4-W's two kernels on the route step's gather) also carry
+``device_ms``, the kernel alone by torch.profiler (null where its trace
+missed launches twice).
 """
 
 from __future__ import annotations
@@ -803,7 +814,8 @@ def recording(windowed: bool = False):
               window=(-1, 1, 0)):
         if (window[0] >= 0) == windowed:
             calls["splat_fwd"].append(
-                (values.clone(), coords.clone(), weights.clone(),
+                (values.clone(), coords.clone(),
+                 None if weights is None else weights.clone(),
                  tuple(out_hw), snap) + ((window,) if windowed else ()))
         return launch_splat(values, coords, weights, out_hw, snap, tiling,
                             window)
@@ -842,44 +854,46 @@ def recording(windowed: bool = False):
 
 
 def k1_bound(values, coords, weights, out_hw, window=(-1, 1, 0)):
-    """K1's bound: each input read and accum/wsum written once, against
-    2 (C+1) float32 operations per in-image (and in-window) corner."""
+    """K1's bound: each input read and accum (and, with weights, wsum)
+    written once, against 2 P float32 operations per in-image (and
+    in-window) corner, P = C (+ 1 with weights). Without weights (the
+    gather's image gradient) that is the function grid_sample's backward
+    for its input computes: the cotangent and the coordinates read once,
+    d_image written once."""
     n, _, _, c = values.shape
-    return bound(nbytes(values, coords, weights)
-                 + 4 * n * out_hw[0] * out_hw[1] * (c + 1),
-                 2 * (c + 1) * corners_in_image(coords, *out_hw, *window))
+    planes = c + (weights is not None)
+    return bound(nbytes(*(t for t in (values, coords, weights)
+                          if t is not None))
+                 + 4 * n * out_hw[0] * out_hw[1] * planes,
+                 2 * planes * corners_in_image(coords, *out_hw, *window))
 
 
-def k1_image_grad_bound(values, coords, out_hw):
-    """K1's bound as the gather's image gradient, the function
-    grid_sample's backward for its input computes: the cotangent and the
-    coordinates read once, d_image written once, against 2 C float32
-    operations per in-image corner. The unit weights GatherFn.backward
-    passes and the wsum it discards are not part of that function."""
-    n, _, _, c = values.shape
-    return bound(nbytes(values, coords) + 4 * n * out_hw[0] * out_hw[1] * c,
-                 2 * c * corners_in_image(coords, *out_hw))
+def check_k1(label: str, got, ref) -> float:
+    """K1's outputs against the plain splat's (SPLAT_RTOL, and
+    SPLAT_ATOL_OF_MAX of the largest entry); wsum None on both sides
+    without weights."""
+    if (got[1] is None) != (ref[1] is None):
+        fail(f"K1 {label}: wsum {got[1] is None} vs plain {ref[1] is None}")
+    return max(check_close(f"K1 {label} {name}", g, r, SPLAT_RTOL,
+                           SPLAT_ATOL_OF_MAX * r.abs().max().item())
+               for name, g, r in zip(("accum", "wsum"), got, ref)
+               if r is not None)
 
 
 def time_k1(label: str, smi: str, values, coords, weights, out_hw,
-            snap: bool = True, iters: int = 20, bnd=None):
-    """K1 against the plain splat on these inputs (values within
-    SPLAT_RTOL), then both timed in turns; logs and returns
-    (times, bound, max abs err). ``bnd`` replaces ``k1_bound`` where K1
-    computes a narrower function."""
+            snap: bool = True, iters: int = 20):
+    """K1 against the plain splat on these inputs (check_k1), then both
+    timed in turns; logs and returns (times, bound, max abs err)."""
     ref = splat_bilinear(values, coords, weights, out_hw, snap=snap)
     got = splat_cuda.splat(values, coords, weights, out_hw, snap=snap)
-    err = max(check_close(f"K1 {label} {name}", g, r, SPLAT_RTOL,
-                          SPLAT_ATOL_OF_MAX * r.abs().max().item())
-              for name, g, r in zip(("accum", "wsum"), got, ref))
+    err = check_k1(label, got, ref)
     del ref, got
     t, readings = in_turns({
         "plain": lambda: splat_bilinear(values, coords, weights, out_hw,
                                         snap=snap),
         "kernel": lambda: splat_cuda.splat(values, coords, weights, out_hw,
                                            snap=snap)}, iters=iters)
-    if bnd is None:
-        bnd = k1_bound(values, coords, weights, out_hw)
+    bnd = k1_bound(values, coords, weights, out_hw)
     log("timing", f"{smi} | K1 splat {label} {tuple(values.shape)} -> "
         f"{tuple(out_hw)}: {1e3 * t['kernel']:.1f} us/call "
         f"{readings['kernel']}, plain index_add_ {1e3 * t['plain']:.1f} "
@@ -987,6 +1001,7 @@ def reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
         k.window_launches = 0
+    splat_cuda.splat.band_launches = 0
 
 
 def counts() -> dict:
@@ -995,9 +1010,13 @@ def counts() -> dict:
 
 def window_counts() -> dict:
     """The windowed launches since the last reset, as the kernels line
-    names them."""
-    return {name + "_window": k.window_launches
-            for name, k in KERNELS.items()}
+    names them: K1's split into the box kernel's (``splat_fwd_window``)
+    and the band kernel's (``splat_band``)."""
+    out = {name + "_window": k.window_launches
+           for name, k in KERNELS.items()}
+    out["splat_band"] = splat_cuda.splat.band_launches
+    out["splat_fwd_window"] -= out["splat_band"]
+    return out
 
 
 def golden_serve(dev) -> dict:
@@ -1272,9 +1291,10 @@ def golden_quality(dev) -> str:
 
 def denormal_probe(dev) -> str:
     """H12: splat weights 1e-39 (a float32 denormal), 2e-38 and 1 to
-    pixels 0..2 with K1's shared-memory path, its global-atomics path and
-    the plain index_add_, and report each wsum. JAX on the CPU flushes
-    denormals to 0; torch on the CPU keeps them."""
+    pixels 0..2 with K1's shared-memory path, its global-atomics path, the
+    band kernel (the windowed K1) and the plain index_add_, and report
+    each wsum. JAX on the CPU flushes denormals to 0; torch on the CPU
+    keeps them. Every path must flush the 1e-39 as JAX does."""
     values = torch.ones((1, 1, 3, 1), device=dev)
     coords = torch.tensor([[[[0.0, 0.0], [1.0, 0.0], [2.0, 0.0]]]],
                           device=dev)
@@ -1286,10 +1306,21 @@ def denormal_probe(dev) -> str:
         values, coords, weights, out_hw, True,
         splat_cuda.splat_tiling(values.shape, out_hw, False,
                                 smem_bytes=0))[1]
+    window = (0, 1, 0)
+    band = splat_cuda._launch_splat(
+        values, coords, weights, out_hw, True,
+        splat_cuda.band_tiling(values.shape, out_hw, window), window)[1]
     plain = splat_bilinear(values, coords, weights, out_hw)[1]
+    want = [0.0] + plain.flatten().tolist()[1:]
+    for name, wsum in (("shared-memory path", shared),
+                       ("global atomics", glob), ("band kernel", band)):
+        if wsum.flatten().tolist() != want:
+            fail(f"H12: K1's {name} gives wsum {wsum.flatten().tolist()}, "
+                 f"not {want}")
     return (f"wsum of weights [1e-39, 2e-38, 1]: K1 shared-memory path "
             f"{shared.flatten().tolist()}, K1 global atomics "
-            f"{glob.flatten().tolist()}, plain index_add_ "
+            f"{glob.flatten().tolist()}, the band kernel (windowed K1) "
+            f"{band.flatten().tolist()}, plain index_add_ "
             f"{plain.flatten().tolist()}; exp(-90) on the card "
             f"{torch.exp(torch.tensor(-90.0, device=dev)).item()}")
 
@@ -1802,13 +1833,14 @@ def mpi_timing(dev, smi: str) -> dict:
     _, _, g_err, _ = time_gather_fwd("on the b8 mpi_baseline step's own "
                                      "inputs (B*D planes)", smi, image, coords)
     values, kcoords, weights, out_hw, snap = calls["splat_fwd"][0]
-    if snap or tuple(values.shape) != tuple(coords.shape[:-1]) + (4,):
+    if snap or weights is not None or tuple(values.shape) != tuple(
+            coords.shape[:-1]) + (4,):
         fail(f"the MPI step's K1 launch is not the planes' gradient: "
-             f"snap {snap}, values {tuple(values.shape)}")
+             f"snap {snap}, weights {weights is not None}, values "
+             f"{tuple(values.shape)}")
     _, _, k_err = time_k1("on the b8 mpi_baseline step's own inputs (the "
-                          "planes' gradient, unsnapped; bound of d_image "
-                          "alone)", smi, *calls["splat_fwd"][0],
-                          bnd=k1_image_grad_bound(values, kcoords, out_hw))
+                          "planes' gradient: unsnapped, no weights, no "
+                          "wsum)", smi, *calls["splat_fwd"][0])
     # The library call computing the same function: grid_sample's backward
     # for its input, with the same cotangent.
     img = image.permute(0, 3, 1, 2).contiguous().requires_grad_()
@@ -1938,18 +1970,21 @@ def window_phase(dev, smi: str, ldi, pose, zscale):
         "kernel": lambda: splat_cuda.splat_vjp(
             values, coords, weights, *cot, out_hw, **kw)}, iters=10)
     # The kernels alone: at a shard's size the wrapper's host work around
-    # each launch (checks, two torch.zeros, ctypes) outlasts the kernel,
-    # so CUDA events around back-to-back calls time the host.
+    # each launch (checks, allocations, ctypes) outlasts the kernel, so
+    # CUDA events around back-to-back calls time the host.
+    band = splat_cuda.band_plan(values, out_hw, window, weights) is not None
     dev_fwd = kernel_device_us(lambda: splat_cuda.splat(
-        values, coords, weights, out_hw, **kw), "splat_fwd_kernel")
+        values, coords, weights, out_hw, **kw),
+        "splat_band_kernel" if band else "splat_fwd_kernel")
     dev_vjp = kernel_device_us(lambda: splat_cuda.splat_vjp(
         values, coords, weights, *cot, out_hw, **kw), "splat_vjp_kernel")
     b_fwd = k1_bound(values, coords, weights, out_hw, window)
     b_vjp = vjp_bound(values, coords, weights, out_hw, window)
     label = (f"shard {k} of {SPATIAL_S} ({tuple(values.shape)} -> "
              f"{out_hw}, window {window})")
-    log("timing", f"{smi} | K1 windowed on {label}: kernel {dev_fwd:.1f} us "
-        f"(profiler), {1e3 * t_fwd['kernel']:.1f} us/call {r_fwd['kernel']}"
+    log("timing", f"{smi} | K1 windowed (use_band's choice) on {label}: "
+        f"kernel {dev_fwd:.1f} us (profiler), "
+        f"{1e3 * t_fwd['kernel']:.1f} us/call {r_fwd['kernel']}"
         f" (events, the wrapper's host work included), plain "
         f"{1e3 * t_fwd['plain']:.1f} us/call {r_fwd['plain']}; bound "
         f"{1e3 * b_fwd[0]:.1f} us ({b_fwd[1]}); max abs err {fwd_err:.3e}")
@@ -1964,6 +1999,10 @@ def window_phase(dev, smi: str, ldi, pose, zscale):
         f"{SPLAT_RTOL}, atol {SPLAT_ATOL_OF_MAX}*max|ref|; VJP {vjp_err:.3e},"
         f" rtol {VJP_RTOL}, atol {VJP_ATOL_OF_MAX}*max|ref|); the window "
         f"drops {dropped:.4%} of this shard's splat weight")
+    # The band kernel on the same inputs, beside the box kernel: the
+    # reading use_band's rule rests on.
+    band_vs_box(f"on shard {k} of {SPATIAL_S}", smi, values, coords,
+                weights, out_hw, True, window)
     # The kernels line's "ms" is CUDA-event time per call, as every other
     # entry's; "device_ms" beside it is the kernel alone.
     return {
@@ -2951,9 +2990,11 @@ def route_counts() -> dict:
 def all_windowed(tag: str, launched: dict) -> None:
     """Every launch counted in ``launched`` (route_counts) windowed."""
     for name in KERNELS:
-        if launched[name] != launched[name + "_window"]:
-            fail(f"{tag}: {launched[name + '_window']} of {launched[name]} "
-                 f"{name} launches windowed")
+        windowed = launched[name + "_window"] + (
+            launched["splat_band"] if name == "splat_fwd" else 0)
+        if launched[name] != windowed:
+            fail(f"{tag}: {windowed} of {launched[name]} {name} launches "
+                 "windowed")
 
 
 def dy_warnings(fn):
@@ -3024,7 +3065,8 @@ def route_step(dev, smi: str) -> dict:
         f"{t['kernel'] / t['plain']:.4f}")
     with recording(windowed=True) as calls:
         on_step(state, batch)
-    full = [c for c in calls["splat_fwd"] if c[0].shape[1] == 3 * h]
+    full = [c for c in calls["splat_fwd"]
+            if c[0].shape[1] == 3 * h and c[2] is not None]
     vjp = [c for c in calls["splat_vjp"] if c[0].shape[1] == 3 * h]
     got = [len(calls["splat_fwd"]), len(calls["splat_vjp"]),
            len(calls["gather_fwd"]), len(calls["gather_bwd_coords"])]
@@ -3064,6 +3106,48 @@ def hold_timed(label: str, smi: str, name: str, kernel, plain, check,
         f"alone (profiler) {alone}; max abs err {err:.3e}")
     return dict(t=t, bound=bnd, err=err, library=None,
                 device_ms=None if dev_us is None else dev_us / 1e3)
+
+
+def hold_window_k1(label: str, smi: str, values, coords, weights, out_hw,
+                   snap, window, tiling=None) -> dict:
+    """The windowed K1 on a recorded launch's own inputs, as ``splat``
+    launches it (use_band's choice of kernel) or with ``tiling`` (a
+    BandTiling: the band kernel), against the plain windowed splat
+    (check_k1), timed (hold_timed)."""
+    base = splat_cuda.window_base_rows(values.shape[1], out_hw[0],
+                                       *window).to(values.device)
+    band = isinstance(tiling if tiling is not None else splat_cuda.band_plan(
+        values, out_hw, window, weights), splat_cuda.BandTiling)
+    name = "the band kernel" if band else "the box kernel"
+    return hold_timed(
+        f"{label} ({tuple(values.shape)} -> {out_hw}, window {window}"
+        + ("" if weights is not None else ", no weights") + ")", smi,
+        f"K1 windowed ({name}"
+        + (", use_band's choice)" if tiling is None else ")"),
+        lambda: splat_cuda._launch_splat(values, coords, weights, out_hw,
+                                         snap, tiling, window),
+        lambda: splat_bilinear(values, coords, weights, out_hw, snap=snap,
+                               max_dy_window=window[0], base_rows=base),
+        lambda got, ref: check_k1(f"windowed {label}", got, ref),
+        "splat_band_kernel" if band else "splat_fwd_kernel",
+        k1_bound(values, coords, weights, out_hw, window))
+
+
+def band_vs_box(label: str, smi: str, values, coords, weights, out_hw, snap,
+                window) -> float:
+    """The band kernel and the box kernel on the same windowed inputs,
+    each held to the plain windowed splat and timed (the readings
+    use_band's rule rests on); returns the larger max abs err."""
+    err = 0.0
+    for tiling in (
+            splat_cuda.band_tiling(values.shape, out_hw, window,
+                                   weights=weights is not None,
+                                   aligned16=values.data_ptr() % 16 == 0),
+            splat_cuda.splat_tiling(values.shape, out_hw,
+                                    aligned16=values.data_ptr() % 16 == 0)):
+        err = max(err, hold_window_k1(label, smi, values, coords, weights,
+                                      out_hw, snap, window, tiling)["err"])
+    return err
 
 
 def hold_gather_window(label: str, smi: str, image, coords, window,
@@ -3171,31 +3255,15 @@ def route_kernels(dev, smi: str, own: dict) -> dict:
         wide + (d_wide,), exact + (d_exact,)))
     del image, coords, cot, wide, exact, d_wide, d_exact
 
-    values, coords, weights, out_hw, snap, window = own["splat_fwd"]
-    base = splat_cuda.window_base_rows(values.shape[1], out_hw[0], *window)
-    kw = dict(max_dy=window[0], fold_h=window[1], base_offset=window[2])
-
-    def check_k1(got, ref):
-        return max(check_close(f"K1 windowed route {k}", g, r, SPLAT_RTOL,
-                               SPLAT_ATOL_OF_MAX * r.abs().max().item())
-                   for k, g, r in zip(("accum", "wsum"), got, ref))
-
-    label = (f"on the b8 route step's own inputs ({tuple(values.shape)} -> "
-             f"{out_hw}, window {window})")
-    out["splat_fwd_window"] = hold_timed(
-        label, smi, "K1 windowed",
-        lambda: splat_cuda.splat(values, coords, weights, out_hw, snap=snap,
-                                 **kw),
-        lambda: splat_bilinear(values, coords, weights, out_hw, snap=snap,
-                               max_dy_window=window[0],
-                               base_rows=base.to(dev)),
-        check_k1, "splat_fwd_kernel",
-        k1_bound(values, coords, weights, out_hw, window))
-    del values, coords, weights
+    out["splat_fwd_window"] = hold_window_k1(
+        "on the b8 route step's own inputs", smi, *own["splat_fwd"])
+    band_vs_box("on the b8 route step's own inputs", smi, *own["splat_fwd"])
     values, coords, weights, g_accum, g_wsum, out_hw, vkw = own["splat_vjp"]
     vwin = (vkw["max_dy"], vkw["fold_h"] or out_hw[0], vkw["base_offset"])
     slack = splat_vjp_slack(values, coords, weights, g_accum, g_wsum, out_hw,
                             vwin)
+    label = (f"on the b8 route step's own inputs ({tuple(values.shape)} -> "
+             f"{out_hw}, window {vwin})")
     out["splat_vjp_window"] = hold_timed(
         label + " and cotangents", smi, "lsi_splat_vjp windowed",
         lambda: splat_cuda.splat_vjp(values, coords, weights, g_accum,
@@ -3210,7 +3278,8 @@ def route_kernels(dev, smi: str, own: dict) -> dict:
         f"mass) and at random +-40 px (drops {random_drop:.4%}); a window "
         f"that drops nothing, away from the snap zones, is the exact "
         f"kernels' gather within {same:.3e} (bitwise: {bitwise}); the "
-        f"windowed K1 and lsi_splat_vjp held on the step's own inputs")
+        f"windowed K1 (the box and the band kernel) and lsi_splat_vjp held "
+        f"on the step's own inputs")
     return out
 
 
@@ -3308,7 +3377,8 @@ def golden_pallas(dev) -> str:
 def route_serving(dev, smi: str):
     """Phase 29 (d): kitti_ldi2 serving on the route (b8, 4 requests and
     one over-rotated pose, which must warn), frames/s beside "auto".
-    Returns the summary and the launches of the requests."""
+    Returns the summary, the launches of the requests and one render's K1
+    launch (recorded)."""
     config = get_config("kitti_ldi2")
     h, w = config.data.height, config.data.width
     on_cfg = config.replace(render=dataclasses.replace(config.render,
@@ -3336,6 +3406,8 @@ def route_serving(dev, smi: str):
     if not all(torch.isfinite(r).all() for r in rendered):
         fail("route serving: non-finite renders")
     err = (model.render(ldi, pose) - auto.render(ldi, pose)).abs().max().item()
+    with recording(windowed=True) as calls:
+        model.render(ldi, pose)
     image = images[0]
     t, readings = in_turns({
         "plain": lambda: auto.render(auto.predict_ldi(image), pose),
@@ -3348,13 +3420,14 @@ def route_serving(dev, smi: str):
             f"end-to-end {t['kernel']:.3f} ms ({1e3 * BATCH / t['kernel']:.1f}"
             f" frames/s) {readings['kernel']}, \"auto\" {t['plain']:.3f} ms "
             f"({1e3 * BATCH / t['plain']:.1f} frames/s) {readings['plain']}, "
-            "in turns"), launched
+            "in turns"), launched, calls["splat_fwd"][0]
 
 
 def route_trajectory(dev, smi: str, workdir: Path):
     """Phase 29 (d): the trajectory sweep on the route (windowed K1 at
     trajectory_sweep's window of 16): 8 windowed launches, the frames
-    beside "auto"'s; returns the summary and the launches."""
+    beside "auto"'s; returns the summary, the launches and the first
+    chunk's K1 launch (recorded)."""
     from lsi_tpu_torch.evaluation.trajectory import render_trajectory
     from lsi_tpu_torch.models import build_model
     cfg = build_config("trajectory_sweep", [
@@ -3366,8 +3439,9 @@ def route_trajectory(dev, smi: str, workdir: Path):
     net.reset_parameters(torch.Generator().manual_seed(0))
     net = net.to(dev)
     reset_counts()
-    frames, warned = dy_warnings(lambda: runner.trajectory_frames(cfg, net,
-                                                                  dev))
+    with recording(windowed=True) as calls:
+        frames, warned = dy_warnings(lambda: runner.trajectory_frames(
+            cfg, net, dev))
     launched = route_counts()
     all_windowed("route trajectory", launched)
     # The sweep's rotation moves rows by at most ~4 at 768 px: the window
@@ -3395,14 +3469,16 @@ def route_trajectory(dev, smi: str, workdir: Path):
             f"warning, frames {err.item():.3e} from auto's at most; the "
             f"sweep of one LDI (phase 25's) {t['kernel']:.3f} ms "
             f"{readings['kernel']}, auto {t['plain']:.3f} ms "
-            f"{readings['plain']}, in turns"), launched
+            f"{readings['plain']}, in turns"), launched, \
+        calls["splat_fwd"][0]
 
 
 def route_mpi(dev, smi: str):
     """Phase 29 (d): mpi_baseline at its widths on the route (the
     homography gather windowed at 2 rows), ROUTE_MPI_STEPS steps through
-    make_train_step, then its step beside "auto"'s; returns the summary
-    and the launches."""
+    make_train_step, then its step beside "auto"'s; returns the summary,
+    the launches and one step's K1 launch (the planes' gradient: K4-W's,
+    snapped, windowed, no weights; recorded)."""
     cfg = build_config("mpi_baseline", ["render.use_pallas=on"])
     auto = cfg.replace(render=dataclasses.replace(cfg.render,
                                                   use_pallas="auto"))
@@ -3427,13 +3503,18 @@ def route_mpi(dev, smi: str):
     t, readings = in_turns({"plain": lambda: auto_step(state, batches[0]),
                             "kernel": lambda: step(state, batches[0])},
                            iters=5)
+    with recording(windowed=True) as calls:
+        step(state, batches[0])
+    if len(calls["splat_fwd"]) != 1 or calls["splat_fwd"][0][2] is not None:
+        fail(f"route mpi: one step recorded {calls['splat_fwd']} as K1")
     b, h, w = cfg.data.batch_size, cfg.data.height, cfg.data.width
     return (f"{smi} | mpi_baseline b{b} {h}x{w} on the route (window "
             f"{cfg.render.pallas_max_dy}): {ROUTE_MPI_STEPS} steps, "
             f"{launched}, all windowed; photo_mpi "
             + ", ".join(f"{m['photo_mpi']:.5f}" for m in history)
             + f"; step {t['kernel']:.3f} ms {readings['kernel']}, auto "
-            f"{t['plain']:.3f} ms {readings['plain']}, in turns"), launched
+            f"{t['plain']:.3f} ms {readings['plain']}, in turns"), launched, \
+        calls["splat_fwd"][0]
 
 
 def route_phase(dev, smi: str, workdir: Path, shards: Path):
@@ -3450,14 +3531,33 @@ def route_phase(dev, smi: str, workdir: Path, shards: Path):
     log("route", "golden (toy, float32, TF32 off, cuDNN deterministic) vs "
         "JAX's kernels in interpret mode: " + with_tf32_off(
             lambda: with_cudnn_deterministic(lambda: golden_pallas(dev))))
-    for fn in (route_serving, route_mpi):
-        summary, more = fn(dev, smi)
-        log("route", summary)
-        launched = {k: v + more[k] for k, v in launched.items()}
-        torch.cuda.empty_cache()
-    summary, more = route_trajectory(dev, smi, workdir)
+    summary, more, serve_k1 = route_serving(dev, smi)
     log("route", summary)
     launched = {k: v + more[k] for k, v in launched.items()}
+    torch.cuda.empty_cache()
+    summary, more, mpi_k1 = route_mpi(dev, smi)
+    log("route", summary)
+    launched = {k: v + more[k] for k, v in launched.items()}
+    torch.cuda.empty_cache()
+    summary, more, sweep_k1 = route_trajectory(dev, smi, workdir)
+    log("route", summary)
+    launched = {k: v + more[k] for k, v in launched.items()}
+    # The band kernel on the MPI's own inputs (use_band's choice there: the
+    # kernels line's entry) and the serving render's, each beside the box
+    # kernel; the box kernel beside the band kernel on the sweep's own.
+    label = "on the route MPI step's own inputs (the planes' gradient)"
+    band = kernels["splat_band"] = dict(
+        hold_window_k1(label, smi, *mpi_k1),
+        replaces="lsi_tpu/kernels/splat_pallas.py:141")
+    band["err"] = max(band["err"], band_vs_box(label, smi, *mpi_k1))
+    label = "on the route's b8 kitti_ldi2 serving render's own inputs"
+    band["err"] = max(band["err"],
+                      hold_window_k1(label, smi, *serve_k1)["err"],
+                      band_vs_box(label, smi, *serve_k1))
+    box = kernels["splat_fwd_window"]
+    box["err"] = max(box["err"], band_vs_box(
+        "on the route sweep's own inputs (a chunk of 8 poses)", smi,
+        *sweep_k1))
     return kernels, launched
 
 
@@ -3911,7 +4011,8 @@ def main() -> None:
         kernels[name] = dict(
             route_kernels_read[name], replaces=kernels[name]["replaces"],
             err=max(kernels[name]["err"], route_kernels_read[name]["err"]))
-    for name in ("gather_fwd_window", "gather_bwd_coords_window"):
+    for name in ("gather_fwd_window", "gather_bwd_coords_window",
+                 "splat_band"):
         if route_launches[name] == 0:
             fail(f"{name} was not launched by the route's main paths")
         total[name] = route_launches[name]
@@ -3930,7 +4031,8 @@ def main() -> None:
         entries.append({
             "name": name, "route": "cuda",
             "source": "lsi_tpu_torch/csrc/" + (
-                "splat_fwd.cu" if name.startswith("splat_fwd")
+                "splat_band.cu" if name == "splat_band"
+                else "splat_fwd.cu" if name.startswith("splat_fwd")
                 else "splat_bwd.cu"),
             "replaces": k["replaces"], "launches": total[name],
             "max_abs_err": k["err"], "ms": k["t"]["kernel"],

@@ -1,4 +1,4 @@
-// Forward bilinear splat (scatter-add) for Hopper (sm_90a).
+// Forward bilinear splat (scatter-add) for Hopper (sm_90a): the box kernel.
 //
 // Replaces the TPU kernel lsi_tpu/kernels/splat_pallas.py:_splat_kernel
 // (launched by splat_pallas). The TPU version builds per-row tent matrices
@@ -37,7 +37,10 @@
 //
 // SNAP (the render) snaps the fractions as ops/splat.py does; without it
 // the kernel is the exact transpose of the unsnapped bilinear gather (the
-// gather's image gradient).
+// gather's image gradient). HAS_W false (null weights and wsum: the
+// gather's image gradient) scatters the values themselves, with no wsum
+// plane in the box and no wsum atomics; a template parameter, so the
+// weighted kernels compile as before.
 //
 // The windowed mode (max_dy >= 0) is the TPU kernel's contract, which the
 // height-sharded render (lsi_tpu_torch/parallel/spatial.py) relies on: a
@@ -47,14 +50,17 @@
 // version is ops/splat.py's max_dy_window). The test is one more
 // predicate on a corner's liveness, so a dropped corner leaves the
 // block's bounding box too and both paths (shared memory and global
-// atomics) drop it alike. max_dy < 0 is the unwindowed splat.
+// atomics) drop it alike. max_dy < 0 is the unwindowed splat. A
+// windowed splat whose bands re-read few rows takes the band kernel
+// instead (csrc/splat_band.cu; kernels/splat_cuda.py:use_band gives the
+// rule and the measurements behind it).
 //
 // Summation order is not fixed (atomics), so
 // results differ from run to run in the last bits (H8). Bounds are tested
 // in float BEFORE any float->int conversion: projected coordinates reach
 // +-1e6 where the projection clamps its denominator, and an out-of-range
 // float->int cast is undefined; a non-finite coordinate fails every test
-// and is dropped. wsum may be null: then it is not written.
+// and is dropped.
 //
 // Plain C interface (loaded with ctypes): launches on the calling
 // thread's current device (the wrapper selects the tensors' device) and
@@ -140,9 +146,9 @@ __device__ __forceinline__ void load_scaled(const float* src, int64_t i,
   for (int ch = 0; ch < C; ++ch) out[ch] = src[i * C + ch] * scale;
 }
 
-// Global atomics for target pixel t: accum[t] += add, wsum[t] += w (wsum
-// may be null). One vector atomic for accum when C = 4 and vec4.
-template <int C>
+// Global atomics for target pixel t: accum[t] += add and, with HAS_W,
+// wsum[t] += w. One vector atomic for accum when C = 4 and vec4.
+template <int C, bool HAS_W>
 __device__ __forceinline__ void add_pixel(float* accum, float* wsum,
                                           int64_t t, const float add[C],
                                           float w, int vec4) {
@@ -158,10 +164,10 @@ __device__ __forceinline__ void add_pixel(float* accum, float* wsum,
 #pragma unroll
     for (int ch = 0; ch < C; ++ch) atomicAdd(&accum[t * C + ch], add[ch]);
   }
-  if (wsum != nullptr) atomicAdd(&wsum[t], w);
+  if (HAS_W) atomicAdd(&wsum[t], w);
 }
 
-template <int C, bool SNAP>
+template <int C, bool SNAP, bool HAS_W>
 __global__ void __launch_bounds__(kThreads)
     splat_fwd_kernel(const float* __restrict__ values,
                      const float* __restrict__ coords,
@@ -170,7 +176,9 @@ __global__ void __launch_bounds__(kThreads)
                      int src_h, int src_w, int out_h, int out_w, int tile_h,
                      int smem_floats, int vec4, int max_dy, int fold_h,
                      int base_offset) {
-  extern __shared__ float smem[];  // the box: C planes of accum, 1 of wsum
+  // The box: C planes of accum and, with HAS_W, 1 of wsum.
+  constexpr int P = C + (HAS_W ? 1 : 0);
+  extern __shared__ float smem[];
   __shared__ int box[4];  // min x, max x, min y, max y of live corners
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -228,9 +236,9 @@ __global__ void __launch_bounds__(kThreads)
     // Both sides are at most the target's, whose area times C+1 the
     // wrapper keeps below 2^31.
     box_px = bw * (box[3] - by0 + 1);
-    in_smem = box_px * (C + 1) <= smem_floats;
+    in_smem = box_px * P <= smem_floats;
     if (in_smem) {
-      for (int k = tid; k < box_px * (C + 1); k += kThreads) smem[k] = 0.0f;
+      for (int k = tid; k < box_px * P; k += kThreads) smem[k] = 0.0f;
       __syncthreads();
     }
   }
@@ -244,7 +252,7 @@ __global__ void __launch_bounds__(kThreads)
           q.x, q.y, out_h, out_w,
           max_dy >= 0 ? r % fold_h + base_offset : 0, max_dy);
       if (!(c.live[0] || c.live[1] || c.live[2] || c.live[3])) continue;
-      const float w = weights[src_base + p];
+      const float w = HAS_W ? weights[src_base + p] : 1.0f;
       float pay[C];
       load_scaled<C>(values, src_base + p, w, vec4, pay);
 #pragma unroll
@@ -259,14 +267,14 @@ __global__ void __launch_bounds__(kThreads)
           for (int ch = 0; ch < C; ++ch) {
             atomicAdd(&smem[ch * box_px + t], pay[ch] * f);
           }
-          atomicAdd(&smem[C * box_px + t], w * f);
+          if (HAS_W) atomicAdd(&smem[C * box_px + t], w * f);
           continue;
         }
         float add[C];
 #pragma unroll
         for (int ch = 0; ch < C; ++ch) add[ch] = pay[ch] * f;
-        add_pixel<C>(accum, wsum, out_base + yi * out_w + xi, add, w * f,
-                     vec4);
+        add_pixel<C, HAS_W>(accum, wsum, out_base + yi * out_w + xi, add,
+                            w * f, vec4);
       }
     }
   }
@@ -277,7 +285,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int k = tid; k < box_px; k += kThreads) {
     float a[C];
-    const float ws = smem[C * box_px + k];
+    const float ws = HAS_W ? smem[C * box_px + k] : 0.0f;
     bool nonzero = ws != 0.0f;
 #pragma unroll
     for (int ch = 0; ch < C; ++ch) {
@@ -285,20 +293,20 @@ __global__ void __launch_bounds__(kThreads)
       nonzero |= a[ch] != 0.0f;
     }
     if (!nonzero) continue;
-    add_pixel<C>(accum, wsum,
-                 out_base + (by0 + k / bw) * out_w + (bx0 + k % bw), a, ws,
-                 vec4);
+    add_pixel<C, HAS_W>(accum, wsum,
+                        out_base + (by0 + k / bw) * out_w + (bx0 + k % bw),
+                        a, ws, vec4);
   }
 }
 
-template <int C, bool SNAP>
+template <int C, bool SNAP, bool HAS_W>
 cudaError_t launch(const float* values, const float* coords,
                    const float* weights, float* accum, float* wsum,
                    int64_t n, int64_t src_h, int64_t src_w, int64_t out_h,
                    int64_t out_w, int block_x, int tile_h, int smem_bytes,
                    int vec4, int max_dy, int fold_h, int base_offset,
                    cudaStream_t stream) {
-  auto kernel = splat_fwd_kernel<C, SNAP>;
+  auto kernel = splat_fwd_kernel<C, SNAP, HAS_W>;
   // Dynamic + static shared memory above 48 KB needs the opt-in.
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -314,11 +322,28 @@ cudaError_t launch(const float* values, const float* coords,
   return cudaGetLastError();
 }
 
+template <int C, bool SNAP>
+cudaError_t launch_w(bool has_w, const float* v, const float* c,
+                     const float* w, float* a, float* s, int64_t n,
+                     int64_t src_h, int64_t src_w, int64_t out_h,
+                     int64_t out_w, int block_x, int tile_h, int smem_bytes,
+                     int vec4, int max_dy, int fold_h, int base_offset,
+                     cudaStream_t st) {
+  return has_w ? launch<C, SNAP, true>(v, c, w, a, s, n, src_h, src_w, out_h,
+                                       out_w, block_x, tile_h, smem_bytes,
+                                       vec4, max_dy, fold_h, base_offset, st)
+               : launch<C, SNAP, false>(v, c, w, a, s, n, src_h, src_w,
+                                        out_h, out_w, block_x, tile_h,
+                                        smem_bytes, vec4, max_dy, fold_h,
+                                        base_offset, st);
+}
+
 }  // namespace
 
 // values (n, src_h, src_w, channels), coords (.., 2), weights (.., 1) ->
 // accum (n, out_h, out_w, channels) and wsum (.., 1), both zeroed by the
-// caller (wsum may be null). block_x (a divisor of 256) columns by
+// caller; weights and wsum are both null (the values scattered
+// unweighted, no wsum) or both given. block_x (a divisor of 256) columns by
 // 256 / block_x rows of threads; tile_h source rows per block (a multiple
 // of 256 / block_x); smem_bytes of dynamic shared memory for the box;
 // vec4: float4 loads and atomics (channels 4, pointers 16-byte aligned).
@@ -337,9 +362,10 @@ extern "C" int lsi_splat_fwd(const void* values, const void* coords,
   if (n * src_h * src_w == 0) return 0;
   if (block_x <= 0 || kThreads % block_x != 0 || tile_h <= 0 ||
       tile_h % (kThreads / block_x) != 0 || smem_bytes < 0 ||
-      (vec4 && channels != 4)) {
+      (vec4 && channels != 4) || (weights == nullptr) != (wsum == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool has_w = weights != nullptr;
   if (max_dy >= 0 && (fold_h <= 0 || src_h % fold_h != 0 ||
                       base_offset < 0 || base_offset + fold_h > out_h)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -355,12 +381,12 @@ extern "C" int lsi_splat_fwd(const void* values, const void* coords,
   switch (channels) {
 #define LSI_SPLAT_CASE(CH)                                                  \
   case CH:                                                                  \
-    err = snap ? launch<CH, true>(v, c, w, a, s, n, src_h, src_w, out_h,   \
-                                  out_w, block_x, tile_h, smem_bytes, vec4, \
-                                  max_dy, fd, bo, st)                       \
-               : launch<CH, false>(v, c, w, a, s, n, src_h, src_w, out_h,  \
-                                   out_w, block_x, tile_h, smem_bytes,     \
-                                   vec4, max_dy, fd, bo, st);               \
+    err = snap ? launch_w<CH, true>(has_w, v, c, w, a, s, n, src_h, src_w, \
+                                    out_h, out_w, block_x, tile_h,         \
+                                    smem_bytes, vec4, max_dy, fd, bo, st)   \
+               : launch_w<CH, false>(has_w, v, c, w, a, s, n, src_h,       \
+                                     src_w, out_h, out_w, block_x, tile_h, \
+                                     smem_bytes, vec4, max_dy, fd, bo, st); \
     break;
     LSI_SPLAT_CASE(1)
     LSI_SPLAT_CASE(2)

@@ -2,9 +2,11 @@
 
 Each library is built from the sources under ``lsi_tpu_torch/csrc/`` at
 first use, into ``lsi_tpu_torch/_build/`` (listed in ``.gitignore``), with
-a plain C interface: no PyTorch headers, so a build takes seconds. The
-file name carries a hash of the sources and flags, so an edited source is
-rebuilt and a stale library is never loaded.
+a plain C interface: no PyTorch headers, so a build takes seconds. Each
+source compiles in its own nvcc process, all started together, and the
+objects are linked into one shared library. The file name carries a hash
+of the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
+# Flags of each source's compile (``-c``); the link adds ``-shared``.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -33,13 +36,19 @@ _INT = ctypes.c_int
 
 # Library name -> (sources under csrc/, {C function: argtypes}).
 LIBRARIES = {
-    "splat_fwd": (("splat_fwd.cu",), {
+    "splat_fwd": (("splat_fwd.cu", "splat_band.cu"), {
         # values, coords, weights, accum, wsum, n, src_h, src_w, channels,
         # out_h, out_w, snap, block_x, tile_h, smem_bytes, vec4, max_dy,
         # fold_h, base_offset, stream
         "lsi_splat_fwd": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
                           _I64, _I64, _INT, _INT, _INT, _INT, _INT, _INT,
                           _I64, _I64, _P],
+        # values, coords, weights, accum, wsum, n, src_h, src_w, channels,
+        # out_h, out_w, snap, max_dy, fold_h, base_offset, band_rows,
+        # plane_stride, smem_bytes, vec4, stream
+        "lsi_splat_band": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
+                           _I64, _I64, _INT, _INT, _I64, _I64, _INT, _INT,
+                           _INT, _INT, _P],
     }),
     "splat_bwd": (("splat_bwd.cu",), {
         # values, coords, weights, g_accum, g_wsum, d_values, d_coords,
@@ -84,6 +93,20 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds, name: str) -> None:
+    """Run the nvcc commands ``cmds`` all at once; raise on any failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        output = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"(rc {proc.returncode}) {' '.join(cmd)}\n{output}")
+    if failed:
+        raise RuntimeError(f"nvcc failed for {name}:\n" + "\n".join(failed))
+
+
 def build(name: str) -> Path:
     """Compile ``name`` unless its library for these sources exists."""
     out = library_path(name)
@@ -91,22 +114,16 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     sources, _ = LIBRARIES[name]
-    # Compile to a private file, then rename: a concurrent build never
-    # sees a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC_DIR / s) for s in sources)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name} (rc {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = find_nvcc()
+    # Compile into a private directory and link to a private file, then
+    # rename: a concurrent build never sees a half-written library.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, Path(s).stem + ".o") for s in sources]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / s)]
+              for s, obj in zip(sources, objects)], name)
+        lib = os.path.join(tmp, "lib.so")
+        _run([[nvcc, "-shared", "-o", lib, *objects]], name)
+        os.replace(lib, out)
     return out
 
 

@@ -15,7 +15,7 @@ splat's (``splat_cuda.check_window``).
 * ``gather_bwd_coords`` launches ``lsi_gather_bwd_coords``: the coordinate
   cotangent, recomputed from the corners instead of saved by the forward;
 * the image cotangent, when the image requires grad, is the forward splat
-  (K1 with unit weights: unsnapped, or snapped and windowed as the
+  (K1 without weights or wsum: unsnapped, or snapped and windowed as the
   gather) of the ``sampled`` cotangent, as ``gather_pallas.py``'s
   backward does.
 
@@ -238,10 +238,9 @@ class GatherFn(torch.autograd.Function):
         d_image = d_coords = None
         g_sampled = g_sampled.float().contiguous()
         if ctx.needs_input_grad[0]:
-            # ``valid`` does not depend on the image: no term from it.
-            ones = torch.ones(coords.shape[:-1] + (1,), dtype=torch.float32,
-                              device=coords.device)
-            d_image, _ = splat(g_sampled, coords, ones, image.shape[1:3],
+            # ``valid`` does not depend on the image: no term from it. The
+            # cotangent is splatted unweighted, and no wsum is made.
+            d_image, _ = splat(g_sampled, coords, None, image.shape[1:3],
                                snap=max_dy >= 0, max_dy=max_dy,
                                fold_h=fold_h)
         if ctx.needs_input_grad[1]:

@@ -3,8 +3,13 @@ wrappers and the autograd Function that joins them.
 
 The kernels are hand-written for sm_90a and bound through ctypes:
 
-* ``splat`` launches ``lsi_tpu_torch/csrc/splat_fwd.cu`` (K1), replacing
-  ``lsi_tpu/kernels/splat_pallas.py:_splat_kernel``;
+* ``splat`` launches K1, replacing
+  ``lsi_tpu/kernels/splat_pallas.py:_splat_kernel``: the box kernel
+  ``lsi_splat_fwd`` (``lsi_tpu_torch/csrc/splat_fwd.cu``), unwindowed or
+  windowed, or, for a windowed splat whose bands re-read few rows, the
+  band kernel ``lsi_splat_band`` (``lsi_tpu_torch/csrc/splat_band.cu``),
+  launched as :func:`band_tiling` plans (:func:`use_band` gives the
+  rule);
 * ``splat_vjp`` launches ``lsi_splat_vjp`` of
   ``lsi_tpu_torch/csrc/splat_bwd.cu``, replacing ``_splat_bwd_kernel``
   (K2) with the combine of ``splat_pallas_diff``'s backward (K3) fused in.
@@ -94,6 +99,14 @@ def check_tiling(t: Tiling) -> Tiling:
     return t
 
 
+def check_offsets(values_shape, out_hw) -> None:
+    """Raise where an image's element offsets would not fit 32 bits."""
+    _, hs, ws, c = (int(v) for v in values_shape)
+    out_h, out_w = (int(v) for v in out_hw)
+    if max(hs * ws * max(c, 2), out_h * out_w * (c + 1)) >= 2**31:
+        raise ValueError("an image's offsets must fit 32 bits")
+
+
 def splat_tiling(values_shape, out_hw, aligned16: bool, *,
                  block_x: int = 128, rows_per_thread: int = 2,
                  smem_bytes: int = 32 * 1024) -> Tiling:
@@ -105,16 +118,149 @@ def splat_tiling(values_shape, out_hw, aligned16: bool, *,
     (``csrc/splat_fwd.cu``). ``aligned16``: values and accum start on a
     16-byte boundary; with C = 4 that takes the float4 path.
     """
+    check_offsets(values_shape, out_hw)
     n, hs, ws, c = (int(v) for v in values_shape)
-    out_h, out_w = (int(v) for v in out_hw)
-    if max(hs * ws * max(c, 2), out_h * out_w * (c + 1)) >= 2**31:
-        raise ValueError("an image's offsets must fit 32 bits")
     block_y = THREADS // block_x
     tile_h = block_y * rows_per_thread
     return check_tiling(Tiling(
         block=(block_x, block_y), tile=(tile_h, block_x),
         grid=(-(-ws // block_x), -(-hs // tile_h), n),
         smem_bytes=smem_bytes, vec4=c == 4 and aligned16))
+
+
+#: The band kernel's blocks an SM holds (``kBlocksPerSM`` in
+#: splat_band.cu): each block's band gets a quarter of the SM's 228 KB of
+#: shared memory, less the 1 KB the card keeps per block.
+BAND_BLOCKS_PER_SM = 4
+BAND_SMEM_BYTES = 233_472 // BAND_BLOCKS_PER_SM - 1024
+#: Streaming multiprocessors of an H100 SXM.
+SMS = 132
+#: What a visited row of a layer that lands in the band costs a block,
+#: per plane, against what a visited row costs that it only reads and
+#: culls: a live pixel adds its corners to every plane with shared-memory
+#: atomics; a culled one reads its coordinates and tests them.
+BAND_LIVE_COST = 0.75
+
+
+@dataclasses.dataclass(frozen=True)
+class BandTiling:
+    """The band kernel's launch: blocks of 512 threads (``kThreads`` in
+    splat_band.cu), each owning ``rows`` target rows of one image at full
+    width, ``grid``
+    (bands, N, 1); the band's planes ``plane_stride`` floats apart in
+    shared memory, ``smem_bytes`` in all; ``vec4`` float4 value loads."""
+    rows: int
+    grid: tuple
+    plane_stride: int
+    smem_bytes: int
+    vec4: bool
+
+
+def band_plane_stride(rows: int, out_w: int, channels: int) -> int:
+    """Floats between the band's planes: ``rows * out_w``, padded so that
+    consecutive planes start ``ceil(32 / C)`` banks apart, which spreads
+    the pixel-major reads of the band's store over the 32 banks."""
+    px = rows * out_w
+    return px + (-(-32 // channels) - px) % 32
+
+
+def band_source_rows(t0: int, rows: int, window, layers: int):
+    """The source rows the band of target rows ``[t0, t0 + rows)`` visits:
+    in each folded layer ``l``, ``l * fold_h + b`` for ``b`` in
+    ``[t0 - max_dy - 1 - base_offset, t0 + rows - 1 + max_dy -
+    base_offset]`` clipped to ``[0, fold_h)`` (``band_of_block`` in
+    ``csrc/splat_band.cu``): exactly the rows whose window reaches it."""
+    max_dy, fold_h, base_offset = window
+    lo = max(0, t0 - max_dy - 1 - base_offset)
+    hi = min(fold_h - 1, t0 + rows - 1 + max_dy - base_offset)
+    return [l * fold_h + b for l in range(layers) for b in range(lo, hi + 1)]
+
+
+def band_tiling(values_shape, out_hw, window, *, weights: bool = True,
+                aligned16: bool = False, rows=None) -> BandTiling:
+    """The band kernel's launch for values (N, Hs, Ws, C) splatted into
+    ``out_hw`` under ``window`` ((max_dy, fold_h, base_offset), checked).
+
+    A block's band (C planes and, with ``weights``, one of wsum) must fit
+    ``BAND_SMEM_BYTES``, or ValueError (as the TPU kernel's VMEM check).
+    Of the band heights that fit, the plan takes the one that minimises
+    the busiest SM's work: ``ceil(blocks / (SMS * BAND_BLOCKS_PER_SM))``
+    blocks, each visiting ``min(fold_h, rows + 2 max_dy + 1)`` rows of
+    every layer and adding ``rows`` of them, at ``BAND_LIVE_COST`` per
+    plane, into the band. ``rows`` forces the band height (it must fit).
+    ``aligned16``: values start on a 16-byte boundary, which at C = 4
+    takes float4 loads.
+    """
+    check_offsets(values_shape, out_hw)
+    n, hs, ws, c = (int(v) for v in values_shape)
+    out_h, out_w = (int(v) for v in out_hw)
+    max_dy, fold_h, base_offset = window
+    if max_dy < 0:
+        raise ValueError("the band kernel is the windowed splat: max_dy >= 0")
+    layers = hs // fold_h
+    planes = c + bool(weights)
+    best = None
+    for height in (range(1, out_h + 1) if rows is None else (rows,)):
+        stride = band_plane_stride(height, out_w, c)
+        smem = planes * stride * 4
+        if smem > BAND_SMEM_BYTES:
+            break
+        blocks = -(-out_h // height) * n
+        work = layers * (min(fold_h, height + 2 * max_dy + 1)
+                         + height * planes * BAND_LIVE_COST)
+        cost = -(-blocks // (SMS * BAND_BLOCKS_PER_SM)) * work
+        if best is None or cost < best[0]:
+            best = (cost, height, stride, smem)
+    if best is None:
+        raise ValueError(
+            f"a band of {rows or 1} target row(s) of {out_w} px x {planes} "
+            f"planes does not fit the {BAND_SMEM_BYTES} B of shared memory "
+            "a band kernel block may use")
+    _, height, stride, smem = best
+    return check_band_tiling(BandTiling(
+        rows=height, grid=(-(-out_h // height), n, 1), plane_stride=stride,
+        smem_bytes=smem, vec4=c == 4 and aligned16))
+
+
+#: The band kernel takes a windowed splat when its plan's blocks read at
+#: most this many coordinate rows of a layer for each target row they own.
+BAND_MAX_READS = 4
+
+
+def use_band(tiling: BandTiling, window) -> bool:
+    """Which kernel a windowed splat takes: the band kernel when a band of
+    ``tiling.rows`` rows visits at most ``BAND_MAX_READS`` rows of each
+    layer a band row (``rows + 2 max_dy + 1``) and the plan has a block
+    for every slot of the card (``SMS * BAND_BLOCKS_PER_SM``), else the
+    box kernel. Measured on an NVIDIA H100 80GB HBM3 at 700 W, the kernel
+    alone (torch.profiler; scripts/compare_parent_kernels.py, PERF.md §6),
+    band against box: the route MPI step's planes' gradient (1.5
+    rows a row, 1536 blocks) 74.9 us against 105.9, the route's b8
+    serving render (3.5, 1024 blocks) 88.2 against 103.2; a height shard
+    (3.5, 288 blocks) 61.9 against 42.5, the route quality step's full
+    LDI (9.5) 233.8 against 178.2, the sweep's chunk (17.5) 199.5 against
+    135.7."""
+    rows, max_dy = tiling.rows, window[0]
+    return (rows + 2 * max_dy + 1 <= BAND_MAX_READS * rows
+            and tiling.grid[0] * tiling.grid[1] >= SMS * BAND_BLOCKS_PER_SM)
+
+
+def band_plan(values: torch.Tensor, out_hw, window, weights):
+    """The band kernel's plan for a windowed splat of ``values`` where
+    :func:`use_band` takes it, else None (the box kernel)."""
+    plan = band_tiling(values.shape, out_hw, window,
+                       weights=weights is not None,
+                       aligned16=values.data_ptr() % 16 == 0)
+    return plan if use_band(plan, window) else None
+
+
+def check_band_tiling(t: BandTiling) -> BandTiling:
+    """Raise where ``t`` breaks CUDA's limits; return it."""
+    if not 0 <= t.smem_bytes <= MAX_SMEM_BYTES:
+        raise ValueError(f"{t.smem_bytes} B of shared memory")
+    if any(not 1 <= g <= m for g, m in zip(t.grid, MAX_GRID)):
+        raise ValueError(f"grid {t.grid} beyond CUDA's limits {MAX_GRID}")
+    return t
 
 
 def check_window(src_h: int, out_h: int, max_dy: int, fold_h=None,
@@ -151,17 +297,20 @@ def window_base_rows(src_h: int, out_h: int, max_dy: int,
     return torch.arange(src_h) % fold_h + base_offset
 
 
-def _check(values: torch.Tensor, coords: torch.Tensor,
-           weights: torch.Tensor, out_hw) -> None:
+def _check(values: torch.Tensor, coords: torch.Tensor, weights, out_hw
+           ) -> None:
     if values.ndim != 4:
         raise ValueError(f"values must be (N, Hs, Ws, C), got {tuple(values.shape)}")
     n, hs, ws, c = values.shape
+    tensors = {"values": values, "coords": coords, "weights": weights}
     want = {"coords": (n, hs, ws, 2), "weights": (n, hs, ws, 1)}
-    for name, t in (("coords", coords), ("weights", weights)):
-        if tuple(t.shape) != want[name]:
+    for name in want:
+        t = tensors[name]
+        if t is None and name == "weights":
+            del tensors[name]
+        elif tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
-    check_tensors({"values": values, "coords": coords, "weights": weights},
-                  values.device)
+    check_tensors(tensors, values.device)
     if not 1 <= c <= 8:
         raise ValueError(f"the kernel takes 1..8 channels, got {c}")
     out_h, out_w = out_hw
@@ -169,8 +318,8 @@ def _check(values: torch.Tensor, coords: torch.Tensor,
         raise ValueError(f"out_hw must be positive, got {out_hw}")
 
 
-def splat(values: torch.Tensor, coords: torch.Tensor, weights: torch.Tensor,
-          out_hw, snap: bool = True, max_dy: int = -1, fold_h=None,
+def splat(values: torch.Tensor, coords: torch.Tensor, weights, out_hw,
+          snap: bool = True, max_dy: int = -1, fold_h=None,
           base_offset: int = 0):
     """Forward-splat ``values`` into an ``out_hw`` image (K1).
 
@@ -178,7 +327,8 @@ def splat(values: torch.Tensor, coords: torch.Tensor, weights: torch.Tensor,
       values:  (N, Hs, Ws, C) float32, C in 1..8; layers may be folded into
         Hs, the targets come from ``coords`` alone.
       coords:  (N, Hs, Ws, 2) float32 target pixel [x, y].
-      weights: (N, Hs, Ws, 1) float32.
+      weights: (N, Hs, Ws, 1) float32, or None: the values splatted
+        unweighted, and no wsum (the gather's image gradient).
       out_hw:  (out_h, out_w).
       snap: snap the bilinear fractions (the render); False gives the
         transpose of the unsnapped gather (``GatherFn``'s image gradient).
@@ -187,10 +337,12 @@ def splat(values: torch.Tensor, coords: torch.Tensor, weights: torch.Tensor,
         ``base = r % fold_h + base_offset`` for source row r
         (:func:`window_base_rows`); -1 (the default) is no window.
     Returns:
-      accum (N, out_h, out_w, C) and wsum (N, out_h, out_w, 1), float32.
+      accum (N, out_h, out_w, C) and wsum (N, out_h, out_w, 1), float32
+      (wsum None without weights).
     """
     _check(values, coords, weights, out_hw)
-    check_no_grad("splat", values, coords, weights)
+    check_no_grad("splat", *(t for t in (values, coords, weights)
+                             if t is not None))
     window = check_window(values.shape[1], int(out_hw[0]), max_dy, fold_h,
                           base_offset)
     if not check_device(values.device):
@@ -206,33 +358,57 @@ def splat(values: torch.Tensor, coords: torch.Tensor, weights: torch.Tensor,
 
 def _launch_splat(values, coords, weights, out_hw, snap, tiling=None,
                   window=(-1, 1, 0)):
-    """Launch K1 on CUDA tensors with ``tiling`` (default:
-    :func:`splat_tiling`'s choice) and ``window`` ((max_dy, fold_h,
-    base_offset), checked by the caller) and count the launch."""
+    """Launch K1 on CUDA tensors and count the launch, with ``window``
+    ((max_dy, fold_h, base_offset), checked by the caller): the band
+    kernel as ``tiling`` (a :class:`BandTiling`) says, or the box kernel
+    as ``tiling`` (a :class:`Tiling`) says; without ``tiling``, a windowed
+    splat's :func:`band_plan` where :func:`use_band` takes it, else the
+    box kernel's (:func:`splat_tiling`)."""
     n, hs, ws, c = values.shape
     out_h, out_w = (int(v) for v in out_hw)
+    if tiling is None and window[0] >= 0:
+        tiling = band_plan(values, out_hw, window, weights)
+    band = isinstance(tiling, BandTiling)
     coords = aligned(coords, 8)  # read as float2
-    accum = torch.zeros((n, out_h, out_w, c), dtype=torch.float32,
-                        device=values.device)
-    wsum = torch.zeros((n, out_h, out_w, 1), dtype=torch.float32,
-                       device=values.device)
-    if tiling is None:
-        tiling = splat_tiling(values.shape, out_hw, aligned16=all(
-            t.data_ptr() % 16 == 0 for t in (values, accum)))
-    build.launch("splat_fwd", "lsi_splat_fwd", values.device,
-                 values.data_ptr(), coords.data_ptr(), weights.data_ptr(),
-                 accum.data_ptr(), wsum.data_ptr(), n, hs, ws, c, out_h,
-                 out_w, int(snap), tiling.block[0], tiling.tile[0],
-                 tiling.smem_bytes, int(tiling.vec4), *window)
+    # The band kernel writes every output pixel; the box kernel adds.
+    alloc = torch.empty if band else torch.zeros
+    accum = alloc((n, out_h, out_w, c), dtype=torch.float32,
+                  device=values.device)
+    wsum = None if weights is None else alloc(
+        (n, out_h, out_w, 1), dtype=torch.float32, device=values.device)
+    if band:
+        build.launch("splat_fwd", "lsi_splat_band", values.device,
+                     values.data_ptr(), coords.data_ptr(), _ptr(weights),
+                     accum.data_ptr(), _ptr(wsum), n, hs, ws, c, out_h,
+                     out_w, int(snap), *window, tiling.rows,
+                     tiling.plane_stride, tiling.smem_bytes,
+                     int(tiling.vec4))
+        splat.band_launches += 1
+    else:
+        if tiling is None:
+            tiling = splat_tiling(values.shape, out_hw, aligned16=all(
+                t.data_ptr() % 16 == 0 for t in (values, accum)))
+        build.launch("splat_fwd", "lsi_splat_fwd", values.device,
+                     values.data_ptr(), coords.data_ptr(), _ptr(weights),
+                     accum.data_ptr(), _ptr(wsum), n, hs, ws, c, out_h,
+                     out_w, int(snap), tiling.block[0], tiling.tile[0],
+                     tiling.smem_bytes, int(tiling.vec4), *window)
     splat.launches += 1
     splat.window_launches += window[0] >= 0
     return accum, wsum
 
 
+def _ptr(t) -> int:
+    """A tensor's data pointer, 0 (null) for None."""
+    return 0 if t is None else t.data_ptr()
+
+
 #: Kernel launches made through :func:`splat` (CPU calls do not count),
-#: and how many of them were windowed.
+#: how many of them were windowed, and how many of those took the band
+#: kernel.
 splat.launches = 0
 splat.window_launches = 0
+splat.band_launches = 0
 
 
 def _plain_vjp(values, coords, weights, g_accum, g_wsum, out_hw, needs,

@@ -39,7 +39,9 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
     Args:
       values:  (N, Hs, Ws, C) source values.
       coords:  (N, Hs, Ws, 2) target pixel [x, y] for each source pixel.
-      weights: (N, Hs, Ws, 1) per-source-pixel weight.
+      weights: (N, Hs, Ws, 1) per-source-pixel weight, or None: the
+        values splatted unweighted and no wsum (the gather's image
+        gradient).
       out_hw:  (out_h, out_w) target size.
       snap: snap the bilinear fractions (the render's splat). Without it
         the splat is the exact transpose of ``ops.gather.bilinear_sample``
@@ -51,15 +53,21 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
         base row: ``base_rows`` (Hs,) integers, or ``row % out_h``.
     Returns:
       accum (N, out_h, out_w, C) float32 sum of ``w * frac * v`` and
-      wsum (N, out_h, out_w, 1) float32 sum of ``w * frac``.
+      wsum (N, out_h, out_w, 1) float32 sum of ``w * frac`` (None without
+      weights).
     """
     out_h, out_w = out_hw
     n, hs, ws, c = values.shape
     p = hs * ws
     dev = values.device
 
-    w32 = weights.float().reshape(n, p, 1)
-    payload = torch.cat([values.float().reshape(n, p, c) * w32, w32], dim=-1)
+    if weights is None:
+        payload = values.float().reshape(n, p, c)
+    else:
+        w32 = weights.float().reshape(n, p, 1)
+        payload = torch.cat([values.float().reshape(n, p, c) * w32, w32],
+                            dim=-1)
+    planes = payload.shape[-1]
 
     x = coords[..., 0].float().reshape(n, p)
     y = coords[..., 1].float().reshape(n, p)
@@ -105,11 +113,12 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
         wts.append(frac * inb)
 
     idx = torch.stack(idxs).reshape(-1)                     # (4*N*P,)
-    contrib = (payload[None] * torch.stack(wts)[..., None]).reshape(-1, c + 1)
-    out = torch.zeros(trash + 1, c + 1, dtype=torch.float32, device=dev)
+    contrib = (payload[None] * torch.stack(wts)[..., None]).reshape(-1,
+                                                                     planes)
+    out = torch.zeros(trash + 1, planes, dtype=torch.float32, device=dev)
     out.index_add_(0, idx, contrib)
-    out = out[:trash].reshape(n, out_h, out_w, c + 1)
-    return out[..., :c], out[..., c:]
+    out = out[:trash].reshape(n, out_h, out_w, planes)
+    return out[..., :c], (None if weights is None else out[..., c:])
 
 
 def corner_reads(image: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor):

@@ -20,18 +20,33 @@ chip_smoke.py). For each:
   bitwise); the share of K1's blocks that accumulate in shared memory
   (from the tiling the wrapper chooses);
 * ``lsi_splat_vjp`` and ``lsi_gather_bwd_coords``, which this tree must
-  leave as they were: outputs bitwise equal, times in turns.
+  leave as they were: outputs bitwise equal, times in turns;
+* the windowed K1 on the windowed main paths' own inputs (the route's
+  quality step, a height shard, the route's serving render, the sweep,
+  the route's MPI step): the parent's box kernel against this tree's K1
+  as ``splat`` launches it (``use_band``'s choice) and, where that is the
+  box kernel, against the band kernel too, in turns, outputs held to
+  each other at chip_smoke.py's splat tolerance; and K1 as the MPI step's
+  image gradient, the parent with the unit weights and discarded wsum
+  its ``GatherFn`` passed, this tree without them.
 
 Also prints each kernel's registers, shared memory and spills from
-``nvcc -Xptxas -v``; with ``--out``, writes everything there as JSON.
+``nvcc -Xptxas -v``, the atomic instructions in the K1 library's SASS
+(``cuobjdump``: a shared-memory float atomicAdd is a compare-and-swap
+loop, ``ATOMS.CAST.SPIN``), and, for each windowed input, the share of
+corners that aim at the pixel another lane's same corner aims at in a
+warp of 32 neighbouring pixels (those compare-and-swaps retry); with
+``--out``, writes everything there as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -45,8 +60,9 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
 from lsi_tpu_torch.api import LSIModel  # noqa: E402
-from lsi_tpu_torch.config import get_config  # noqa: E402
+from lsi_tpu_torch.config import build_config, get_config  # noqa: E402
 from lsi_tpu_torch.data.pipeline import batch_stream  # noqa: E402
+from lsi_tpu_torch.geometry.ldi import LDI  # noqa: E402
 from lsi_tpu_torch.geometry.transforms import translation_pose  # noqa: E402
 from lsi_tpu_torch.kernels import build, gather_cuda, splat_cuda  # noqa: E402
 from lsi_tpu_torch.ops.splat import snap_fraction  # noqa: E402
@@ -54,9 +70,8 @@ from lsi_tpu_torch.train.trainer import create_state, make_train_step  # noqa: E
 
 
 # The parent's K1 and lsi_splat_vjp end their arguments with a window
-# (max_dy, fold_h, base_offset), here none; its gathers take no window
-# (this tree's take max_dy and fold_h, -1 for none, their wrappers'
-# default).
+# (max_dy, fold_h, base_offset), its gathers with (max_dy, fold_h); here
+# none.
 NO_WINDOW = (-1, 1, 0)
 
 
@@ -74,15 +89,46 @@ def ptxas_report() -> str:
     """Registers, shared memory and spills of every kernel of this tree."""
     lines = []
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (sources, _) in build.LIBRARIES.items():
-            cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
-                   "-o", f"{tmp}/{name}.so",
-                   *(str(build.CSRC_DIR / s) for s in sources)]
-            out = subprocess.run(cmd, capture_output=True, text=True)
-            lines += [ln for ln in (out.stdout + out.stderr).splitlines()
-                      if "Compiling entry" in ln or "Used" in ln
-                      or "spill" in ln]
+        for sources, _ in build.LIBRARIES.values():
+            for src in sources:
+                cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas",
+                       "-v", "-c", "-o", f"{tmp}/{Path(src).stem}.o",
+                       str(build.CSRC_DIR / src)]
+                out = subprocess.run(cmd, capture_output=True, text=True)
+                lines += [ln for ln in (out.stdout + out.stderr).splitlines()
+                          if "Compiling entry" in ln or "Used" in ln
+                          or "spill" in ln]
     return "\n".join(lines)
+
+
+def sass_atomics() -> str:
+    """Counts of the atomic instructions in the K1 library's SASS."""
+    out = subprocess.run(
+        [str(Path(build.find_nvcc()).parent / "cuobjdump"), "-sass",
+         str(build.library_path("splat_fwd"))],
+        capture_output=True, text=True).stdout
+    found = collections.Counter(m.group(0) for m in re.finditer(
+        r"\b(?:ATOMS|ATOM|RED)[A-Z0-9_.]*", out))
+    return ", ".join(f"{k} {v}" for k, v in sorted(found.items()))
+
+
+def warp_collisions(coords, out_hw):
+    """Per corner (00, 01, 10, 11), the share of in-image corners of 32
+    neighbouring pixels of a row whose target another of them shares."""
+    n, hs, ws, _ = coords.shape
+    g = ws // 32
+    x0 = torch.floor(coords[..., 0])[:, :, :g * 32]
+    y0 = torch.floor(coords[..., 1])[:, :, :g * 32]
+    lane = torch.arange(g * 32, device=coords.device, dtype=torch.float32)
+    shares = []
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        x, y = x0 + dx, y0 + dy
+        ok = (x >= 0) & (x <= out_hw[1] - 1) & (y >= 0) & (y <= out_hw[0] - 1)
+        t = torch.where(ok, y * out_hw[1] + x, -1 - lane.expand_as(x))
+        t = t.reshape(n, hs, g, 32).sort(-1).values
+        same = (t[..., 1:] == t[..., :-1]) & (t[..., 1:] >= 0)
+        shares.append(float(same.sum()) / max(float(ok.sum()), 1.0))
+    return shares
 
 
 def in_turns(parent_fn, change_fn, iters: int):
@@ -171,6 +217,71 @@ def sweep(dev, splat_sets, gather_sets):
     return rows
 
 
+def record_windowed(dev):
+    """The windowed K1's inputs (values, coords, weights, out_hw, snap,
+    window) on the route (render.use_pallas="on"): one quality step's full
+    LDI, one kitti_ldi2 b8 render, a sweep's first chunk and one MPI
+    step's planes' gradient; a height shard's (chip_smoke.py phase 19);
+    and the unwindowed MPI step's planes' gradient."""
+    from lsi_tpu_torch.evaluation.trajectory import render_trajectory
+    out = {}
+    cfg = build_config("kitti_ldi3_quality", cs.ROUTE_ON)
+    state = create_state(cfg, seed=0, device=dev)
+    batch = next(batch_stream(cfg.data, seed=0, device=dev))
+    with cs.recording(windowed=True) as calls:
+        make_train_step(cfg)(state, batch)
+    h = cfg.data.height
+    out["route quality step's own (full LDI)"] = next(
+        c for c in calls["splat_fwd"]
+        if c[0].shape[1] == 3 * h and c[2] is not None)
+    del state, batch, calls
+    config = build_config("kitti_ldi2", ["render.use_pallas=on"])
+    h, w = config.data.height, config.data.width
+    model = LSIModel.init(0, config, h, w, device=dev)
+    rng = np.random.default_rng(1)
+    image = torch.from_numpy(rng.uniform(size=(cs.BATCH, h, w, 3))
+                             .astype(np.float32)).to(dev)
+    pose = translation_pose([[-0.3, 0.0, 0.0]] * cs.BATCH).to(dev)
+    with cs.recording(windowed=True) as calls:
+        ldi = model.predict_ldi(image)
+        model.render(ldi, pose)
+    out["route b8 kitti_ldi2 render's own"] = calls["splat_fwd"][0]
+    sweep = build_config("trajectory_sweep", ["render.use_pallas=on"])
+    one = LDI(textures=ldi.textures[:1].float(),
+              disparities=ldi.disparities[:1].float(),
+              intrinsics=ldi.intrinsics[:1].float())
+    with torch.no_grad(), cs.recording(windowed=True) as calls:
+        render_trajectory(one, 60, (0.15, 0.0, 0.0), (0.0, 0.0, 0.01),
+                          sweep.render)
+    out["route sweep's own (first chunk, window 16)"] = calls["splat_fwd"][0]
+    del model, ldi, one, calls
+    ldi, pose, zscale = cs.spatial_ldi(dev, 8)
+    hd = ldi.height // cs.SPATIAL_S
+    shard = LDI(textures=ldi.textures[:, :, hd:2 * hd],
+                disparities=ldi.disparities[:, :, hd:2 * hd],
+                intrinsics=ldi.intrinsics)
+    shift = cs.global_shift(ldi, pose, zscale)
+    with torch.no_grad():
+        values, coords, weights, out_hw, window = cs.shard_splat_args(
+            shard, pose, None, zscale, hd, cs.SPATIAL_MAX_DY,
+            lambda t: shift)
+    out["height shard 1 of 4's own"] = (values, coords, weights, out_hw,
+                                        True, window)
+    del ldi, shard
+    for on in (True, False):
+        cfg = build_config("mpi_baseline",
+                           ["render.use_pallas=on"] if on else [])
+        state = create_state(cfg, seed=0, device=dev)
+        batch = next(batch_stream(cfg.data, seed=0, device=dev))
+        with cs.recording(windowed=on) as calls:
+            make_train_step(cfg)(state, batch)
+        label = ("route MPI step's own (the planes' gradient)" if on else
+                 "MPI step's own (the planes' gradient, unwindowed)")
+        out[label] = calls["splat_fwd"][0] + (() if on else (NO_WINDOW,))
+        del state, batch, calls
+    return out
+
+
 def record_main_path(dev):
     """K1's inputs in one b8 kitti_ldi2 render and K1's and the gather's
     in one b16 kitti_ldi3_b16 train step (chip_smoke.py's phases 5 and
@@ -212,16 +323,24 @@ def main() -> None:
     print(smi, flush=True)
     ptxas = ptxas_report()
     print(ptxas, flush=True)
+    atomics = sass_atomics()
+    print(f"SASS atomics of the K1 library: {atomics}", flush=True)
     pb = load_parent_build(args.parent.resolve())
     for name in pb.LIBRARIES:
         pb.load(name)
-    result = {"card": smi, "ptxas": ptxas, "k1": [], "gather_fwd": [],
-              "splat_vjp": [], "gather_bwd_coords": []}
+    result = {"card": smi, "ptxas": ptxas, "sass_atomics": atomics,
+              "k1": [], "k1_window": [],
+              "gather_fwd": [], "splat_vjp": [], "gather_bwd_coords": []}
 
     # The parent's entry points take the tiling this tree's wrappers choose
-    # (the window arguments, this tree's, are left at their defaults).
-    def parent_splat(values, coords, weights, out_hw, snap):
+    # for the box kernel. The parent's K1 takes unit weights where this
+    # tree's takes none (the gather's image gradient): made here, as the
+    # parent's GatherFn made them.
+    def parent_splat(values, coords, weights, out_hw, snap,
+                     window=NO_WINDOW):
         n, hs, ws, c = values.shape
+        if weights is None:
+            weights = torch.ones((n, hs, ws, 1), device=dev)
         acc = torch.zeros((n, *out_hw, c), device=dev)
         wsum = torch.zeros((n, *out_hw, 1), device=dev)
         t = splat_cuda.splat_tiling(values.shape, out_hw, aligned16=all(
@@ -230,7 +349,7 @@ def main() -> None:
                   coords.data_ptr(), weights.data_ptr(), acc.data_ptr(),
                   wsum.data_ptr(), n, hs, ws, c, *out_hw, int(snap),
                   t.block[0], t.tile[0], t.smem_bytes, int(t.vec4),
-                  *NO_WINDOW)
+                  *window)
         return acc, wsum
 
     def parent_gather(image, coords):
@@ -241,7 +360,8 @@ def main() -> None:
         t = gather_cuda.gather_tiling(image.shape, coords.shape)
         pb.launch("splat_bwd", "lsi_gather_fwd", dev, image.data_ptr(),
                   coords.data_ptr(), sampled.data_ptr(), valid.data_ptr(),
-                  n, hs, ws, c, hi, wi, t.grid[1], t.tile[0], t.row_stride)
+                  n, hs, ws, c, hi, wi, t.grid[1], t.tile[0], t.row_stride,
+                  *NO_WINDOW[:2])
         return sampled, valid
 
     def parent_vjp(values, coords, weights, g_acc, g_ws, out_hw):
@@ -259,8 +379,67 @@ def main() -> None:
         d = torch.empty_like(coords)
         pb.launch("splat_bwd", "lsi_gather_bwd_coords", dev,
                   image.data_ptr(), coords.data_ptr(), g_s.data_ptr(),
-                  g_v.data_ptr(), d.data_ptr(), n, hs, ws, c, hi, wi)
+                  g_v.data_ptr(), d.data_ptr(), n, hs, ws, c, hi, wi,
+                  *NO_WINDOW[:2])
         return d
+
+    windowed = record_windowed(dev)
+    for label, (v, c, w, hw, snap, window) in windowed.items():
+        # This tree as splat launches it (use_band's choice), and the band
+        # kernel where that is not it (the reading the rule rests on).
+        trees = {"change": lambda: splat_cuda.splat(
+            v, c, w, hw, snap=snap, max_dy=window[0], fold_h=window[1],
+            base_offset=window[2])}
+        band = window[0] >= 0 and splat_cuda.band_plan(v, hw, window,
+                                                        w) is not None
+        if window[0] >= 0 and not band:
+            tiling = splat_cuda.band_tiling(
+                v.shape, hw, window, weights=w is not None,
+                aligned16=v.data_ptr() % 16 == 0)
+            trees["band"] = lambda: splat_cuda._launch_splat(
+                v, c, w, hw, snap, tiling, window)
+        theirs = parent_splat(v, c, w, hw, snap, window)
+        if w is None:
+            theirs = (theirs[0], None)
+        err = max(cs.check_close(f"K1 parent vs {k} {label}", a, b,
+                                 cs.SPLAT_RTOL, cs.SPLAT_ATOL_OF_MAX
+                                 * b.abs().max().item())
+                  for k, fn in trees.items()
+                  for a, b in zip(fn(), theirs) if b is not None)
+        bnd = cs.k1_bound(v, c, w, hw,
+                          window if window[0] >= 0 else NO_WINDOW)
+        row = dict(inputs=label, shape=list(v.shape), out_hw=list(hw),
+                   window=list(window), weights=w is not None,
+                   change_kernel="band" if band else "box",
+                   bound_us=1e3 * bnd[0], max_abs_diff=err,
+                   warp_collisions=warp_collisions(c, hw))
+        parent_alone = cs.kernel_device_us(
+            lambda: parent_splat(v, c, w, hw, snap, window),
+            "splat_fwd_kernel", required=False)
+        line = []
+        for k, fn in trees.items():
+            t, readings = in_turns(lambda: parent_splat(v, c, w, hw, snap,
+                                                        window), fn, 20)
+            kernel = ("splat_band_kernel" if k == "band" or band
+                      else "splat_fwd_kernel")
+            alone = cs.kernel_device_us(fn, kernel, required=False)
+            row[k] = dict(parent_us=1e3 * t["parent"],
+                          us=1e3 * t["change"], readings=readings,
+                          parent_alone_us=parent_alone, alone_us=alone,
+                          speedup=t["parent"] / t["change"])
+            line.append(f"{k} ({'band' if kernel == 'splat_band_kernel' else 'box'}) "
+                        f"{row[k]['us']:.1f} us against the parent's "
+                        f"{row[k]['parent_us']:.1f} ({row[k]['speedup']:.2f}x) "
+                        f"by events, alone {alone} against {parent_alone}")
+        result["k1_window"].append(row)
+        print(f"K1 {label} {tuple(v.shape)} -> {tuple(hw)} window "
+              f"{tuple(window)}{'' if w is not None else ', no weights'}: "
+              + "; ".join(line) + f"; bound {row['bound_us']:.1f} us; max "
+              f"|this tree - parent| {err:.3e}; corners sharing a target "
+              f"in a warp {[round(x, 4) for x in row['warp_collisions']]}",
+              flush=True)
+    del windowed
+    torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)
     render_in, step_splat_in, step_gather_in = record_main_path(dev)

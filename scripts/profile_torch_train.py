@@ -38,8 +38,8 @@ from lsi_tpu_torch.train.trainer import (create_state,  # noqa: E402
                                          make_train_step)
 
 # Name fragments of the port's own kernels (csrc/*.cu).
-OWN_KERNELS = ("splat_fwd_kernel", "splat_vjp_kernel", "gather_fwd_kernel",
-               "gather_bwd_coords_kernel")
+OWN_KERNELS = ("splat_fwd_kernel", "splat_band_kernel", "splat_vjp_kernel",
+               "gather_fwd_kernel", "gather_bwd_coords_kernel")
 # Kinds of kernel by name fragment; the first that matches wins.
 GROUPS = (
     ("own kernels K1-K4", OWN_KERNELS),

@@ -4,8 +4,10 @@ launch counts, the render and golden fixture on CUDA, K1 at the layer-0
 render's shape and the no-grad disocclusion render, one train step of
 each kind (single and two predictions), the MPI baseline's plane warp
 (GatherFn with the image's gradient, K1 unsnapped) at its shapes, the MPI
-step and the candidate gathers, and the windowed mode of K1 and the splat
-VJP (the height-sharded render's splat) against the plain windowed splat.
+step and the candidate gathers, and the windowed modes of K1 (the box
+kernel's window and the band kernel) and the splat VJP (the
+height-sharded render's splat) against the plain windowed splat; K1
+without weights (the gather's image gradient).
 
 Every test needs a CUDA card (marker ``gpu``) and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed; there,
@@ -794,6 +796,143 @@ def test_window_arguments_raise_before_a_launch(cuda):
     with pytest.raises(ValueError, match="inside the target"):
         splat_cuda.splat(*args, out_hw, max_dy=1, fold_h=8, base_offset=7)
     assert splat_cuda.splat.launches == before
+
+
+# ------------------------------------------ the band kernel (K1 windowed)
+
+# (layers, fold_h, width, base_offset), coordinate kind: a whole number of
+# warps across, a ragged width whose row bytes are no multiple of 16, and
+# one layer of fold_h below the target's height.
+BAND_SHAPES = [((2, 16, 128, 3), "huge"), ((3, 13, 77, 0), "random"),
+               ((1, 40, 66, 5), "huge")]
+
+
+def band_plain(values, coords, weights, out_hw, snap, window):
+    max_dy, fold_h, base_offset = window
+    base = (torch.arange(values.shape[1], device=values.device) % fold_h
+            + base_offset)
+    return splat_bilinear(values, coords, weights, out_hw, snap=snap,
+                          max_dy_window=max_dy, base_rows=base)
+
+
+def assert_band_close(got, ref):
+    assert (got[1] is None) == (ref[1] is None)
+    assert_splat_close([g for g in got if g is not None],
+                       [r for r in ref if r is not None])
+
+
+@pytest.mark.parametrize("max_dy", [0, 1, 2, 8, 16])
+@pytest.mark.parametrize("snap", [True, False])
+@pytest.mark.parametrize("c", range(1, 9))
+def test_band_kernel_matches_plain(cuda, c, snap, max_dy):
+    """The band kernel, with and without weights, against the plain
+    windowed splat: base_offset > 0, fold_h below the target's height,
+    ragged widths, +-1e6, inf and nan coordinates, a third of the rows on
+    integer targets (corners exactly on the window's edges); also
+    ``splat`` itself, which takes the band kernel or the box kernel as
+    ``use_band`` says."""
+    for (layers, fold_h, ws, bo), kind in BAND_SHAPES:
+        *arrays, out_hw = window_inputs(100 + 10 * c + max_dy, 2, layers,
+                                        fold_h, ws, c, max_dy, bo, kind)
+        values, coords, weights = (torch.from_numpy(a).to(cuda)
+                                   for a in arrays)
+        window = (max_dy, fold_h, bo)
+        for w in (weights, None):
+            ref = band_plain(values, coords, w, out_hw, snap, window)
+            before = splat_cuda.splat.band_launches
+            got = splat_cuda.splat(values, coords, w, out_hw, snap=snap,
+                                   max_dy=max_dy, fold_h=fold_h,
+                                   base_offset=bo)
+            torch.cuda.synchronize()
+            assert splat_cuda.splat.band_launches - before == (
+                splat_cuda.band_plan(values, out_hw, window, w) is not None)
+            assert_band_close(got, ref)
+            t = splat_cuda.band_tiling(values.shape, out_hw, window,
+                                       weights=w is not None, aligned16=True)
+            got = splat_cuda._launch_splat(values, coords, w, out_hw, snap,
+                                           t, window)
+            torch.cuda.synchronize()
+            assert_band_close(got, ref)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("c", [3, 4])
+def test_band_heights_agree(cuda, c, weighted):
+    """Every band height gives the same splat: corners on the bands' edges
+    go to exactly one band, at 1 row a band and at the whole target."""
+    *arrays, out_hw = window_inputs(130 + c, 2, 3, 16, 96, c, 2, 3, "huge")
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    if not weighted:
+        args[2] = None
+    window = (2, 16, 3)
+    ref = band_plain(*args, out_hw, True, window)
+    for rows in (1, 2, 3, 5, 8, out_hw[0]):
+        t = splat_cuda.band_tiling(args[0].shape, out_hw, window,
+                                   weights=weighted, aligned16=True,
+                                   rows=rows)
+        got = splat_cuda._launch_splat(*args, out_hw, True, t, window)
+        torch.cuda.synchronize()
+        assert_band_close(got, ref)
+
+
+def test_band_kernel_writes_every_pixel(cuda):
+    """accum and wsum come from torch.empty: the band kernel writes every
+    pixel, zeros included, and nothing a freed NaN block held survives;
+    the launch counts as windowed and as the band kernel's."""
+    *arrays, out_hw = window_inputs(140, 2, 2, 16, 128, 4, 1, 3, "random")
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    n, _, ws, c = args[0].shape
+    for _ in range(4):  # the caching allocator hands these blocks out next
+        torch.full((n, *out_hw, c), float("nan"), device=cuda)
+        torch.full((n, *out_hw, 1), float("nan"), device=cuda)
+    counters = ("launches", "window_launches", "band_launches")
+    before = [getattr(splat_cuda.splat, k) for k in counters]
+    window = (1, 16, 3)
+    got = splat_cuda._launch_splat(*args, out_hw, True, splat_cuda.band_tiling(
+        args[0].shape, out_hw, window), window)
+    torch.cuda.synchronize()
+    assert [getattr(splat_cuda.splat, k) - b
+            for k, b in zip(counters, before)] == [1, 1, 1]
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert_band_close(got, band_plain(*args, out_hw, True, (1, 16, 3)))
+    assert float(got[1].abs().max()) > 0 and bool((got[1] == 0).any())
+
+
+def test_band_kernel_takes_misaligned_views(cuda):
+    """Coordinates 4 bytes off an 8-byte boundary are copied before their
+    float2 loads; values 4 bytes off a 16-byte one take the scalar
+    loads."""
+    *arrays, out_hw = window_inputs(141, 2, 2, 16, 128, 4, 2, 3, "random")
+    values, coords, weights = (torch.from_numpy(a).to(cuda) for a in arrays)
+    flat = torch.empty(coords.numel() + 1, device=cuda)
+    shifted = flat[1:].view(coords.shape)
+    shifted.copy_(coords)
+    vflat = torch.empty(values.numel() + 1, device=cuda)
+    vshifted = vflat[1:].view(values.shape)
+    vshifted.copy_(values)
+    window = (2, 16, 3)
+    ref = band_plain(values, coords, weights, out_hw, True, window)
+    t = splat_cuda.band_tiling(values.shape, out_hw, window)
+    got = splat_cuda._launch_splat(vshifted, shifted, weights, out_hw, True,
+                                   t, window)
+    torch.cuda.synchronize()
+    assert_band_close(got, ref)
+
+
+@pytest.mark.parametrize("snap", [True, False])
+@pytest.mark.parametrize("c", range(1, 9))
+def test_box_kernel_without_weights_matches_plain(cuda, c, snap):
+    """The unwindowed K1 without weights (no wsum) on both of its paths
+    (shared memory and global atomics) against the plain splat."""
+    *arrays, out_hw = splat_case(150 + c, c, "ragged", "random40")
+    values, coords, _ = (torch.from_numpy(a).to(cuda) for a in arrays)
+    ref = splat_bilinear(values, coords, None, out_hw, snap=snap)
+    for smem_bytes in (32 * 1024, 0):
+        t = splat_cuda.splat_tiling(values.shape, out_hw, aligned16=True,
+                                    smem_bytes=smem_bytes)
+        got = splat_cuda._launch_splat(values, coords, None, out_hw, snap, t)
+        torch.cuda.synchronize()
+        assert_band_close(got, ref)
 
 
 # ------------------------------------------ K4-W: the windowed, snapped gather

@@ -1,8 +1,10 @@
-"""The launch choices of the two tiled kernels, K1 (``splat_tiling``) and
-the gather's forward (``gather_tiling``), at every shape that
-``chip_smoke.py`` and the tests give them, plus ragged sizes: each source
-pixel in exactly one tile, shared memory and grid within CUDA's limits,
-the float4 path only at C = 4 with aligned pointers.
+"""The launch choices of the tiled kernels, K1 (``splat_tiling``; its
+windowed mode, the band kernel: ``band_tiling``) and the gather's forward
+(``gather_tiling``), at every shape that ``chip_smoke.py`` and the tests
+give them, plus ragged sizes: each source pixel in exactly one tile (each
+target row in exactly one band, whose visited source rows are exactly
+those whose window reaches it), shared memory and grid within CUDA's
+limits, the float4 path only at C = 4 with aligned pointers.
 
 The kernels themselves run only on a CUDA card: tests/test_torch_cuda.py.
 """
@@ -27,6 +29,23 @@ SPLAT_SHAPES = [
     ((2, 13, 77, 5), (13, 77)),        # ragged
     ((3, 13, 77, 4), (7, 300)),
     ((1, 1, 1, 2), (1, 1)),
+]
+# values (N, Hs, Ws, C) -> out_hw, window (max_dy, fold_h, base_offset),
+# with weights (K1 of the render) or without (the gather's image gradient)
+BAND_SHAPES = [
+    ((8, 768, 768, 4), (256, 768), (8, 256, 0), True),    # route step
+    ((8, 128, 768, 4), (72, 768), (2, 64, 4), True),      # height shard 1
+    ((8, 128, 768, 4), (68, 768), (2, 64, 0), True),      # height shard 0
+    ((8, 512, 768, 4), (256, 768), (16, 256, 0), True),   # the sweep
+    ((8, 512, 768, 4), (256, 768), (2, 256, 0), True),    # serving, route
+    ((128, 128, 256, 4), (128, 256), (2, 128, 0), False),  # MPI d_image
+    ((8, 768, 768, 3), (256, 768), (8, 256, 0), False),   # K4-W d_image
+    ((64, 1024, 1536, 4), (512, 1536), (2, 512, 0), True),  # widest rows
+    ((2, 32, 128, 4), (24, 128), (1, 16, 4), True),       # the gpu tests
+    ((2, 39, 130, 5), (13, 130), (16, 13, 0), False),
+    ((2, 40, 77, 8), (50, 77), (0, 40, 5), True),         # ragged
+    ((3, 13, 7, 1), (20, 7), (1, 13, 7), True),
+    ((1, 1, 1, 2), (1, 1), (0, 1, 0), False),
 ]
 # image (N, Hi, Wi, C), coords (N, Hs, Ws, 2)
 GATHER_SHAPES = [
@@ -67,6 +86,71 @@ def test_splat_tiling_covers_each_pixel_once(values_shape, out_hw):
     assert (t.grid[0] - 1) * tile_w < ws and (t.grid[1] - 1) * tile_h < hs
 
 
+@pytest.mark.parametrize("values_shape,out_hw,window,weights", BAND_SHAPES)
+def test_band_tiling_covers_each_row_once(values_shape, out_hw, window,
+                                          weights):
+    n, hs, ws, c = values_shape
+    out_h, out_w = out_hw
+    max_dy, fold_h, base_offset = window
+    t = splat_cuda.band_tiling(values_shape, out_hw, window,
+                               weights=weights)
+    planes = c + weights
+    assert 0 < t.smem_bytes <= splat_cuda.BAND_SMEM_BYTES
+    assert splat_cuda.BAND_BLOCKS_PER_SM * (splat_cuda.BAND_SMEM_BYTES
+                                            + 1024) <= 233_472
+    assert 1 <= t.grid[0] <= 2**31 - 1 and t.grid[1] == n <= 65_535
+    assert t.plane_stride >= t.rows * out_w
+    assert t.smem_bytes == planes * t.plane_stride * 4
+    hits = np.zeros(out_h, np.int64)
+    layers = hs // fold_h
+    for band in range(t.grid[0]):
+        t0 = band * t.rows
+        rows = min(t.rows, out_h - t0)
+        assert rows > 0
+        hits[t0:t0 + rows] += 1
+        # Source row r reaches the band when some band row lies within
+        # [base - max_dy, base + max_dy + 1], base = r % fold_h + offset.
+        reach = [r for r in range(hs) if any(
+            abs(y - (r % fold_h + base_offset) - 0.5) <= max_dy + 0.5
+            for y in range(t0, t0 + rows))]
+        assert splat_cuda.band_source_rows(t0, rows, window,
+                                           layers) == reach
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("values_shape,out_hw,window,weights,band", [
+    ((128, 128, 256, 4), (128, 256), (2, 128, 0), False, True),  # MPI
+    ((8, 512, 768, 4), (256, 768), (2, 256, 0), True, True),  # serving
+    ((8, 128, 768, 4), (72, 768), (2, 64, 4), True, False),   # shard
+    ((8, 768, 768, 4), (256, 768), (8, 256, 0), True, False),  # quality
+    ((8, 512, 768, 4), (256, 768), (16, 256, 0), True, False),  # sweep
+], ids=["mpi", "serving", "shard", "quality", "sweep"])
+def test_band_rule_follows_the_measurements(values_shape, out_hw, window,
+                                            weights, band):
+    """use_band takes the band kernel on the route's main-path inputs
+    where it was measured faster than the box kernel, and only there."""
+    t = splat_cuda.band_tiling(values_shape, out_hw, window,
+                               weights=weights)
+    assert splat_cuda.use_band(t, window) == band
+
+
+def test_band_tiling_refuses_what_cuda_cannot_launch():
+    with pytest.raises(ValueError, match="does not fit"):
+        splat_cuda.band_tiling((1, 4, 8000, 8), (4, 8000), (2, 4, 0))
+    # One row fits, two do not.
+    assert splat_cuda.band_tiling((1, 4, 1500, 8), (4, 1500),
+                                  (2, 4, 0)).rows == 1
+    with pytest.raises(ValueError, match="does not fit"):
+        splat_cuda.band_tiling((1, 4, 1500, 8), (4, 1500), (2, 4, 0),
+                               rows=2)
+    with pytest.raises(ValueError, match="grid"):
+        splat_cuda.band_tiling((70_000, 4, 64, 4), (4, 64), (2, 4, 0))
+    with pytest.raises(ValueError, match="max_dy"):
+        splat_cuda.band_tiling((1, 4, 64, 4), (4, 64), (-1, 1, 0))
+    with pytest.raises(ValueError, match="32 bits"):
+        splat_cuda.band_tiling((1, 4, 64, 4), (40_000, 40_000), (2, 4, 0))
+
+
 @pytest.mark.parametrize("image_shape,coords_shape", GATHER_SHAPES)
 def test_gather_tiling_covers_each_pixel_once(image_shape, coords_shape):
     n, hi, _, c = image_shape
@@ -94,6 +178,9 @@ def test_gather_tiling_covers_each_pixel_once(image_shape, coords_shape):
 def test_splat_float4_path_only_at_c4_aligned(c, aligned16):
     t = splat_cuda.splat_tiling((2, 32, 128, c), (16, 128),
                                 aligned16=aligned16)
+    assert t.vec4 == (c == 4 and aligned16)
+    t = splat_cuda.band_tiling((2, 32, 128, c), (16, 128), (1, 16, 0),
+                               aligned16=aligned16)
     assert t.vec4 == (c == 4 and aligned16)
 
 
