@@ -4,8 +4,8 @@ training CLI (the quality recipe), the MPI baseline, the multi-process
 paths (the height-sharded render, data-parallel training), training from
 disk (materialized shards, KITTI and SYNTHIA layouts), the trajectory
 sweep, the high-resolution preset, the LDI-vs-planes comparison, the
-collapse rollback and the TPU kernels' windowed route once on one NVIDIA
-GPU.
+collapse rollback, the TPU kernels' windowed route, the deterministic
+splat and the refuted training knobs once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -18,8 +18,9 @@ and no result line:
 2. build   — build every kernel library from lsi_tpu_torch/csrc, one nvcc
              per source, all started together: splat_fwd (K1: the box
              kernel lsi_splat_fwd, and the band kernel lsi_splat_band, its
-             windowed mode) and splat_bwd (lsi_splat_vjp, lsi_gather_fwd,
-             lsi_gather_bwd_coords).
+             windowed mode), splat_sort (K1-D: lsi_splat_sort_keys,
+             lsi_splat_sort_sum) and splat_bwd (lsi_splat_vjp,
+             lsi_gather_fwd, lsi_gather_bwd_coords).
 3. kernel  — K1 against the plain index_add_ splat on the card, at the
              render's shape (N=8, Hs=512, Ws=768, C=4), with out-of-image
              and +-1e6 coordinates; run-to-run spread of the atomics.
@@ -217,6 +218,23 @@ measure no multi-GPU scaling.
              kernels side by side, held and timed on the route step's,
              the MPI step's (the planes' gradient), the serving render's
              and the sweep's own inputs.
+30. sort, knobs — the deterministic splat K1-D (render.splat_method=
+             "sort"): (a) on the b8 kitti_ldi2 render's, the
+             kitti_ldi3_quality step's full LDI's and a height shard's
+             own inputs (window 2), three launches bitwise equal, held to
+             the plain sort splat and to K1, timed by CUDA events and
+             alone by torch.profiler beside K1's bound and a deterministic
+             index_put_; (b) kitti_ldi2 b8 serving with "sort", two passes
+             bitwise equal, every render one K1-D launch; (c) the first
+             quality step's loss parts against "scatter"'s on one batch,
+             and kitti_ldi3_quality through the training CLI from phase
+             23's shards with "sort" (6 steps and an eval, no K1 launch),
+             two renders of the trained LDI bitwise equal; (d) the refuted
+             knobs at the preset's widths: the EMA teacher (the ramp's
+             formula, bitwise), consistency_stop_step with
+             photo_layer0_weight through the CLI (the step switches), and
+             deep_heads_stopgrad_trunk (the trunk's gradient exactly 0
+             under deep-layer terms).
 
 The line before the last two is {"kernels": [...]}, then the card's name
 and power limit as nvidia-smi prints them, and last
@@ -225,14 +243,17 @@ main paths (phases 5, 10, 13, 16, 17, 21's bf16 steps, 23, 24, 25, 26,
 27 (less the probe without remat) and 28, each counted from 0); the
 windowed modes' count phase 20's ranks and phase 29's main paths (its CLI
 run, serving, MPI steps and sweep), the highres entries phases 26 and
-27's. Every entry's ``ms`` and ``plain_ms`` are CUDA-event time per call
-(host work in the wrapper included; the highres entries' plain versions
+27's, ``splat_sort`` (K1-D) phase 30's serving and CLI run. Every
+entry's ``ms`` and ``plain_ms`` are CUDA-event time per call (host work
+in the wrapper included; the highres entries' plain versions
 run chunk by chunk); the windowed entries (``splat_fwd_window``, the
 box kernel's window, and ``splat_vjp_window`` timed on the route step's
 own full-width inputs, ``splat_band``, the band kernel, on the route MPI
 step's own, K4-W's two kernels on the route step's gather) also carry
 ``device_ms``, the kernel alone by torch.profiler (null where its trace
-missed launches twice).
+missed launches twice); ``splat_sort``'s is every kernel of the call
+(keys, sort, sum), and its ``library_ms`` index_put_ (accumulate, under
+torch.use_deterministic_algorithms).
 """
 
 from __future__ import annotations
@@ -270,7 +291,7 @@ from lsi_tpu_torch.models.convert import (jax_from_state_dict,
 from lsi_tpu_torch.models.ldi_predictor import freeze_layer0_grad_mask
 from lsi_tpu_torch.models.mpi import MPI, mpi_source_disparity, render_mpi
 from lsi_tpu_torch.ops.gather import bilinear_sample
-from lsi_tpu_torch.ops.splat import splat_bilinear
+from lsi_tpu_torch.ops.splat import corner_contributions, splat_bilinear
 from lsi_tpu_torch.parallel import launch
 from lsi_tpu_torch.parallel.mesh import ProcessPlan
 from lsi_tpu_torch.parallel.spatial import shard_splat_args
@@ -524,6 +545,58 @@ ROUTE_MPI_STEPS = 3
 # An over-rotated serving pose: 0.15 rad about x moves rows by ~fy * 0.15,
 # far beyond kitti_ldi2's 2-row window.
 OVER_ROTATED = ([[0.15, 0.0, 0.0]], [[0.0, -0.5, 0.0]])
+
+# The deterministic splat (phase 30), K1-D (render.splat_method="sort"):
+# three launches on each input set bitwise equal; kitti_ldi2 serving,
+# kitti_ldi3_quality from phase 23's shards (the warm-up to step 2, full
+# steps, an eval after step 6) with every render on K1-D and none on K1.
+# A step renders as phase 13's (6 warm-up, 10 full, 3 an eval), the VJP
+# and the gathers are the same kernels.
+SORT_SERVE_REQUESTS = 3
+SORT_ON = ["data.dataset=synthetic", "data.synthetic_scene=multi",
+           "render.splat_method=sort"]
+SORT_SETS = SORT_ON + [
+    "train.max_steps=6", "loss.consistency_start_step=2",
+    "train.eval_every=6", "train.eval_batches=1",
+    "train.freeze_layer0_step=0", "train.freeze_layer0_from_best=false",
+    "train.checkpoint_every=100", "train.log_every=1"]
+SORT_PHASES = ["warmup"] * 2 + ["full"] * 4
+SORT_STEP = {"warmup": 6, "full": 10}
+SORT_EVAL = 3
+# The first step's loss parts, sort against scatter on one batch and one
+# state (cuDNN deterministic): the same sums in another order; phase 12's
+# relative tolerance of the loss parts.
+SORT_LOSS_RTOL = 1e-4
+# The four refuted knobs on kitti_ldi3_quality at its widths (phase 30
+# (d)): the EMA teacher for 3 steps (its targets live from step 1), the
+# stop step (2) with photo_layer0_weight through the training CLI for 4
+# steps from phase 23's shards (one more gather a direction: the layer-0
+# inverse warp), the deep heads under a loss of deep-layer terms alone.
+KNOB_STEPS = 3
+STOP_SETS = ["data.dataset=synthetic", "data.synthetic_scene=multi",
+             "loss.consistency_start_step=0", "loss.consistency_stop_step=2",
+             "loss.photo_layer0_weight=0.1", "train.max_steps=4",
+             "train.eval_every=0", "train.freeze_layer0_step=0",
+             "train.freeze_layer0_from_best=false",
+             "train.checkpoint_every=100", "train.log_every=1"]
+STOP_PHASES = ["full"] * 2 + ["stop"] * 2
+STOP_LAUNCHES = {
+    "full": {"splat_fwd": 10, "splat_vjp": 6, "gather_fwd": 4,
+             "gather_bwd_coords": 4},
+    "stop": {"splat_fwd": 6, "splat_vjp": 4, "gather_fwd": 4,
+             "gather_bwd_coords": 4}}
+DEEP_ONLY_SETS = ["data.dataset=synthetic", "data.synthetic_scene=multi",
+                  "model.deep_heads_stopgrad_trunk=true",
+                  "loss.photo_mode=inverse_warp",
+                  "loss.inverse_warp_weight=0", "loss.smoothness_weight=0",
+                  "loss.symmetric=false", "loss.consistency_anchor_weight=0",
+                  "loss.consistency_weight=1"]
+# The loss parts of the quality recipe's full step, as JAX names them.
+QUALITY_PARTS = {"photo_inverse_warp", "photo_splat", "smoothness",
+                 "window_dropped_frac", "depth_consistency", "depth_anchor",
+                 "total", "grad_norm"} | {
+    k + "_rev" for k in ("photo_inverse_warp", "photo_splat", "smoothness",
+                         "window_dropped_frac")}
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -1002,6 +1075,7 @@ def reset_counts() -> None:
         k.launches = 0
         k.window_launches = 0
     splat_cuda.splat.band_launches = 0
+    splat_cuda.splat.sort_launches = 0
 
 
 def counts() -> dict:
@@ -2229,7 +2303,8 @@ def dp_phase(dev, smi: str, workdir: Path) -> dict:
             if not all(np.isfinite(v) for v in m.values()):
                 fail(f"dp bf16: non-finite metrics {m}")
         for i, l in enumerate(r["launches"]):
-            want = dict(FULL_STEP, splat_fwd_window=0, splat_vjp_window=0)
+            want = dict(FULL_STEP, splat_fwd_window=0, splat_vjp_window=0,
+                        splat_sort=0)
             if l != want:
                 fail(f"dp bf16 step {i + 1} launches {l}, expected {want}")
     total = {k: sum(l[k] for r in ranks for l in r["launches"])
@@ -3560,6 +3635,368 @@ def route_phase(dev, smi: str, workdir: Path, shards: Path):
         *sweep_k1))
     return kernels, launched
 
+# ------------------------------------------------ phase 30: sort splat
+
+def call_device_us(fn, iters: int = 10):
+    """Mean device time in us per call of ``fn`` of every CUDA kernel,
+    copy and fill it launches (torch.profiler, after warm-up), and that
+    time by kind: K1-D's keys and sum kernels, the radix sort's kernels,
+    and the rest (the sort's copies and fills)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kinds = (("splat_sort_keys", "keys"), ("splat_sort_sum", "sum"),
+             ("RadixSort", "sort"))
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((k for pat, k in kinds if pat in e.name), "other")
+            by_name[name] = (by_name.get(name, 0.0)
+                             + e.time_range.elapsed_us() / iters)
+    return sum(by_name.values()), by_name
+
+
+def sort_library_ms(values, coords, weights, out_hw, snap, window) -> float:
+    """The library yardstick of K1-D: one index_put_(accumulate=True) of
+    the prebuilt (4 N P, C + 1) corner payload (ops.splat's
+    corner_contributions) under torch.use_deterministic_algorithms(True),
+    the same function summed deterministically in one call; CUDA events,
+    the payload built outside the timing."""
+    base = None if window[0] < 0 else splat_cuda.window_base_rows(
+        values.shape[1], out_hw[0], *window).to(values.device)
+    idx, contrib = corner_contributions(
+        values, coords, weights, out_hw, snap,
+        None if base is None else window[0], base)
+    out = torch.zeros(values.shape[0] * out_hw[0] * out_hw[1] + 1,
+                      contrib.shape[1], device=values.device)
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return cuda_ms(lambda: out.index_put_((idx,), contrib,
+                                              accumulate=True), iters=10)
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def hold_sort(label: str, smi: str, values, coords, weights, out_hw, snap,
+              window=(-1, 1, 0)) -> dict:
+    """K1-D on one input set: three launches bitwise equal, held to the
+    plain sort splat and to K1 (the same function) at phase 3's
+    tolerances, timed in turns with the plain version by CUDA events,
+    alone by torch.profiler (every kernel of the call: keys, sort, sum),
+    beside K1's bound and index_put_."""
+    kw = dict(snap=snap, max_dy=window[0], fold_h=window[1],
+              base_offset=window[2])
+    base = None if window[0] < 0 else splat_cuda.window_base_rows(
+        values.shape[1], out_hw[0], *window).to(values.device)
+
+    def kernel():
+        return splat_cuda.splat(values, coords, weights, out_hw,
+                                deterministic=True, **kw)
+
+    def plain():
+        return splat_bilinear(values, coords, weights, out_hw, snap=snap,
+                              max_dy_window=None if base is None
+                              else window[0], base_rows=base, method="sort")
+
+    runs = [kernel() for _ in range(3)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for r in runs[1:]
+               for a, b in zip(runs[0], r)):
+        fail(f"K1-D {label}: three launches are not bitwise equal")
+    err = max(check_k1(f"K1-D {label} vs the plain sort splat", runs[0],
+                       plain()),
+              check_k1(f"K1-D {label} vs K1", runs[0],
+                       splat_cuda.splat(values, coords, weights, out_hw,
+                                        **kw)))
+    del runs
+    t, readings = in_turns({"plain": plain, "kernel": kernel}, iters=10)
+    dev_us, parts = call_device_us(kernel)
+    bnd = k1_bound(values, coords, weights, out_hw, window)
+    lib = sort_library_ms(values, coords, weights, out_hw, snap, window)
+    log("timing", f"{smi} | K1-D {label} ({tuple(values.shape)} -> "
+        f"{tuple(out_hw)}, window {window}): {1e3 * t['kernel']:.1f} us/call"
+        f" {readings['kernel']} (events), plain sort splat "
+        f"{1e3 * t['plain']:.1f} us/call {readings['plain']}; index_put_ "
+        f"(deterministic, accumulate) {1e3 * lib:.1f} us; bound "
+        f"{1e3 * bnd[0]:.1f} us ({bnd[1]}), {100 * bnd[0] / t['kernel']:.0f}%"
+        f" of it by events; alone (profiler, every kernel of the call) "
+        f"{dev_us:.1f} us: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                         parts.items())
+        + f"; three launches bitwise equal; max abs err {err:.3e}")
+    return dict(t=t, bound=bnd, err=err, library=lib, device_ms=dev_us / 1e3)
+
+
+def sort_inputs(dev):
+    """Phase 30 (a)'s input sets, recorded from the main paths: the b8
+    kitti_ldi2 render's K1 launch, the kitti_ldi3_quality step's full-LDI
+    K1 launch, and shard 1 of 4 of the kitti_ldi2 b8 LDI as
+    render_forward_spatial builds it (window 2). Also the quality step's
+    state and batch, for (c)'s sort-against-scatter step."""
+    config = get_config("kitti_ldi2")
+    h, w = config.data.height, config.data.width
+    model = LSIModel.init(0, config, h, w, device=dev)
+    rng = np.random.default_rng(1)
+    image = torch.from_numpy(rng.uniform(size=(BATCH, h, w, 3)).astype(
+        np.float32)).to(dev)
+    pose = translation_pose([[-0.3, 0.0, 0.0]] * BATCH).to(dev)
+    with recording() as serve:
+        model.render(model.predict_ldi(image), pose)
+    del model, image
+    cfg = build_config("kitti_ldi3_quality", QUALITY_SETS[:2])
+    state = create_state(cfg, seed=0, device=dev)
+    batch = next(batch_stream(cfg.data, seed=0, device=dev))
+    with recording() as calls:
+        make_train_step(cfg)(state, batch)
+    full = [c for c in calls["splat_fwd"] if c[0].shape[1] == 3 * h
+            and c[2] is not None]
+    del calls
+    ldi, spose, zscale = spatial_ldi(dev, BATCH)
+    hd = ldi.height // SPATIAL_S
+    shard = LDI(textures=ldi.textures[:, :, hd:2 * hd],
+                disparities=ldi.disparities[:, :, hd:2 * hd],
+                intrinsics=ldi.intrinsics)
+    shift = global_shift(ldi, spose, zscale)
+    with torch.no_grad():
+        values, coords, weights, out_hw, window = shard_splat_args(
+            shard, spose, None, zscale, hd, SPATIAL_MAX_DY, lambda t: shift)
+    sets = [("on the b8 kitti_ldi2 render's own inputs",
+             *serve["splat_fwd"][0]),
+            ("on the b8 kitti_ldi3_quality step's own inputs (full LDI)",
+             *full[0]),
+            ("on a height shard's own inputs (shard 1 of 4, window 2)",
+             values, coords, weights, out_hw, True, window)]
+    return sets, (cfg, state, batch)
+
+
+def sort_serving(dev, smi: str) -> str:
+    """Phase 30 (b): kitti_ldi2 with render.splat_method=sort serves b8
+    requests twice (cuDNN deterministic, so that the LDIs repeat); every
+    render one K1-D launch and no K1, the two passes bitwise equal."""
+    config = get_config("kitti_ldi2")
+    config = config.replace(render=dataclasses.replace(
+        config.render, splat_method="sort"))
+    h, w = config.data.height, config.data.width
+    model = LSIModel.init(0, config, h, w, device=dev)
+    rng = np.random.default_rng(1)
+    images = [torch.from_numpy(rng.uniform(size=(BATCH, h, w, 3)).astype(
+        np.float32)).to(dev) for _ in range(SORT_SERVE_REQUESTS)]
+    pose = translation_pose([[-0.3, 0.0, 0.0]] * BATCH).to(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    passes = [with_cudnn_deterministic(lambda: [
+        model.render(model.predict_ldi(im), pose) for im in images])
+        for _ in range(2)]
+    torch.cuda.synchronize()
+    launched = (splat_cuda.splat.launches, splat_cuda.splat.sort_launches)
+    if launched != (0, 2 * SORT_SERVE_REQUESTS):
+        fail(f"sort serving: K1 and K1-D launches {launched} for "
+             f"{2 * SORT_SERVE_REQUESTS} renders")
+    if not all(torch.equal(a, b) for a, b in zip(*passes)):
+        fail("sort serving: two passes over the same requests differ")
+    if not all(torch.isfinite(r).all() for r in passes[0]):
+        fail("sort serving: non-finite renders")
+    ms = cuda_ms(lambda: model.render(model.predict_ldi(images[0]), pose),
+                 iters=10)
+    return (f"{smi} | kitti_ldi2 b{BATCH} {h}x{w} with "
+            f"render.splat_method=sort: {SORT_SERVE_REQUESTS} requests "
+            f"served twice, bitwise equal; K1-D launches {launched[1]}, K1 "
+            f"{launched[0]}; end-to-end {ms:.3f} ms "
+            f"({1e3 * BATCH / ms:.1f} frames/s)"), launched[1]
+
+
+def sort_training(dev, smi: str, workdir: Path, shards: Path, step_case):
+    """Phase 30 (c): the first step's loss parts with "sort" against
+    "scatter" on one state and batch; the training CLI on
+    kitti_ldi3_quality with render.splat_method=sort from phase 23's
+    shards, every render K1-D (no K1 launch), an eval; two renders of the
+    trained model's LDI bitwise equal. Returns the summary and K1-D's
+    launches."""
+    cfg, state, batch = step_case
+    sort_cfg = cfg.replace(render=dataclasses.replace(cfg.render,
+                                                      splat_method="sort"))
+    parts = {name: with_cudnn_deterministic(
+        lambda c=c: {k: float(v.detach()) for k, v in
+                     loss_and_grads(state, batch, c)[0].items()})
+        for name, c in (("scatter", cfg), ("sort", sort_cfg))}
+    worst = 0.0
+    for k, v in parts["scatter"].items():
+        rel = abs(parts["sort"][k] - v) / max(abs(v), 1e-12)
+        if rel > SORT_LOSS_RTOL and abs(parts["sort"][k] - v) > 1e-7:
+            fail(f"sort step: {k} {parts['sort'][k]} vs scatter {v}")
+        worst = max(worst, rel)
+    steps = {"plain": make_train_step(cfg), "kernel": make_train_step(sort_cfg)}
+    t, readings = in_turns({k: (lambda f=f: f(state, batch))
+                            for k, f in steps.items()}, iters=5)
+    log("timing", f"{smi} | quality step (full) kitti_ldi3_quality b8 "
+        f"{cfg.data.height}x{cfg.data.width}: render.splat_method=sort "
+        f"{t['kernel']:.3f} ms {readings['kernel']}, \"scatter\" "
+        f"{t['plain']:.3f} ms {readings['plain']} on the same batch, in "
+        f"turns; sort / scatter {t['kernel'] / t['plain']:.4f}")
+    del state, batch, steps
+    torch.cuda.empty_cache()
+    ckpt = workdir / "sort_run"
+    sets = SORT_SETS + [f"data.root={shards}", f"train.checkpoint_dir={ckpt}"]
+    steps = {k: dict(v, splat_fwd=0) for k, v in STEP_LAUNCHES.items()}
+    reset_counts()
+    trained, _, host = traced_cli(
+        "sort", "kitti_ldi3_quality", sets, SORT_PHASES, steps,
+        (len(SORT_PHASES),), dict(EVAL_LAUNCHES, splat_fwd=0), 1)
+    launched = splat_cuda.splat.sort_launches
+    want = sum(SORT_STEP[p] for p in SORT_PHASES) + SORT_EVAL
+    if launched != want or splat_cuda.splat.launches:
+        fail(f"sort CLI: K1-D launched {launched} (want {want}), K1 "
+             f"{splat_cuda.splat.launches}")
+    with open(ckpt / "train.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    evals = [r for r in lines if "eval_psnr" in r]
+    if len(evals) != 1 or not all(np.isfinite(v) for r in lines
+                                  for v in r.values()
+                                  if isinstance(v, float)):
+        fail(f"sort CLI: jsonl {lines}")
+    run_cfg = build_config("kitti_ldi3_quality", sets)
+    batch = next(batch_stream(run_cfg.data, seed=3, device=dev))
+    batch = decode_batch(batch)
+    with torch.no_grad():
+        ldi = trained.net(batch.src_image, batch.intrinsics)
+        renders = [render_forward(ldi, batch.pose_src2trg,
+                                  zbuffer_scale=run_cfg.render.zbuffer_scale,
+                                  splat_method="sort") for _ in range(2)]
+    if not all(torch.equal(renders[0][k], renders[1][k])
+               for k in ("rgb", "disparity", "coverage")):
+        fail("sort: two renders of the trained model's LDI differ")
+    return (f"kitti_ldi3_quality b8: the first step's loss parts with "
+            f"render.splat_method=sort within {worst:.2e} of \"scatter\"'s "
+            f"on one state and batch (total {parts['sort']['total']:.6f} vs "
+            f"{parts['scatter']['total']:.6f}); through the training CLI "
+            f"from phase 23's shards: {len(SORT_PHASES)} steps (phases "
+            f"{SORT_PHASES}) and an eval, K1-D launches {launched}, K1 0; "
+            f"host s a step {secs(host['step'])}; eval_psnr "
+            f"{evals[0]['eval_psnr']:.3f}; two renders of the trained LDI "
+            "bitwise equal"), launched
+
+
+def knob_teacher(dev) -> str:
+    """Phase 30 (d): the EMA teacher on kitti_ldi3_quality at its widths
+    for KNOB_STEPS steps: the teacher after each update equals the ramp's
+    formula applied on the card to the recorded parameters, bitwise;
+    finite loss parts named as JAX names them."""
+    cfg = build_config("kitti_ldi3_quality", QUALITY_SETS[:2] + [
+        "loss.consistency_ema_teacher=true"])
+    state = create_state(cfg, seed=0, device=dev)
+    step = make_train_step(cfg)
+    stream = batch_stream(cfg.data, seed=0, device=dev)
+    decays, totals = [], []
+    for t in range(KNOB_STEPS):
+        before = {k: v.clone() for k, v in state.ema_params.items()}
+        state, metrics = step(state, next(stream))
+        d = trainer_mod.ema_decay(cfg, t)
+        keep = float(np.float32(1) - np.float32(d))
+        for k, p in state.net.named_parameters():
+            if not torch.equal(state.ema_params[k],
+                               before[k] * d + p.detach() * keep):
+                fail(f"EMA teacher: {k} after step {t + 1} is not the ramp")
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if set(metrics) != QUALITY_PARTS or not all(
+                map(np.isfinite, metrics.values())):
+            fail(f"EMA teacher step {t + 1}: {metrics}")
+        decays.append(d)
+        totals.append(metrics["total"])
+    return (f"consistency_ema_teacher: {KNOB_STEPS} steps, the teacher the "
+            f"ramp bitwise (d {secs(decays)}), total {secs(totals)}")
+
+
+def knob_stop(workdir: Path, shards: Path) -> str:
+    """Phase 30 (d): consistency_stop_step=2 and photo_layer0_weight=0.1
+    through the training CLI from phase 23's shards: the step function
+    switches at the stop step (the pseudo-label's launches and part gone,
+    the anchor kept), photo_layer0 named both ways."""
+    ckpt = workdir / "stop_run"
+    sets = STOP_SETS + [f"data.root={shards}", f"train.checkpoint_dir={ckpt}"]
+    reset_counts()
+    traced_cli("stop", "kitti_ldi3_quality", sets, STOP_PHASES,
+               STOP_LAUNCHES, (), EVAL_LAUNCHES, 1)
+    with open(ckpt / "train.jsonl") as f:
+        lines = [json.loads(line) for line in f if "total" in line]
+    names = [set(r) - {"step", "steps_per_sec", "frames_per_sec", "wall_s"}
+             for r in lines]
+    layer0 = {"photo_layer0", "photo_layer0_rev"}
+    want = [QUALITY_PARTS | layer0] * 2 + [
+        (QUALITY_PARTS | layer0) - {"depth_consistency"}] * 2
+    if names != want or not all(np.isfinite(r["total"]) for r in lines):
+        fail(f"stop step: jsonl parts {names}")
+    return ("consistency_stop_step=2, photo_layer0_weight=0.1 through the "
+            f"training CLI: phases {STOP_PHASES}, depth_consistency at "
+            "steps 1-2 only, photo_layer0 "
+            + ", ".join(f"{r['photo_layer0']:.5f}" for r in lines)
+            + ", total " + ", ".join(f"{r['total']:.5f}" for r in lines))
+
+
+def knob_deep(dev) -> str:
+    """Phase 30 (d): deep_heads_stopgrad_trunk under a loss of deep-layer
+    terms alone: every trunk and layer-0 head gradient exactly 0, the deep
+    branch's not; then two steps of the quality recipe with the deep
+    heads, finite and named as JAX names them."""
+    cfg = build_config("kitti_ldi3_quality", DEEP_ONLY_SETS)
+    state = create_state(cfg, seed=0, device=dev)
+    batch = next(batch_stream(cfg.data, seed=0, device=dev))
+    grads = loss_and_grads(state, batch, cfg)[1]
+    trunk = [k for k in grads if k.split(".")[0] in ("unet", "disp_head",
+                                                     "tex_head")]
+    moved = [k for k, g in grads.items() if g.abs().any()]
+    if [k for k in trunk if k in moved] or not {
+            "deep_trunk.weight", "disp_head_deep.weight"} <= set(moved):
+        fail(f"deep heads: gradients on {moved}")
+    full = build_config("kitti_ldi3_quality", QUALITY_SETS[:2] + [
+        "model.deep_heads_stopgrad_trunk=true"])
+    state = create_state(full, seed=0, device=dev)
+    step = make_train_step(full)
+    totals = []
+    for b in (batch, next(batch_stream(full.data, seed=1, device=dev))):
+        state, metrics = step(state, b)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if set(metrics) != QUALITY_PARTS or not all(
+                map(np.isfinite, metrics.values())):
+            fail(f"deep heads step: {metrics}")
+        totals.append(metrics["total"])
+    return (f"deep_heads_stopgrad_trunk: with deep-layer terms alone the "
+            f"{len(trunk)} trunk and layer-0 head tensors take exactly 0, "
+            f"{len(moved)} deep tensors a gradient; 2 quality steps, total "
+            f"{secs(totals)}")
+
+
+def sort_phase(dev, smi: str, workdir: Path, shards: Path):
+    """Phase 30: the deterministic splat and the refuted knobs. Returns
+    K1-D's reading for the kernels line (on the b8 render's own inputs,
+    its error the largest of the three sets) and its launches on the main
+    paths ((b) serving, (c) the CLI run)."""
+    t0 = time.perf_counter()
+    sets, step_case = sort_inputs(dev)
+    readings = [hold_sort(label, smi, *args) for label, *args in sets]
+    del sets
+    torch.cuda.empty_cache()
+    reading = dict(readings[0], replaces="lsi_tpu/ops/splat.py:145",
+                   err=max(r["err"] for r in readings))
+    summary, served = sort_serving(dev, smi)
+    log("sort", summary)
+    torch.cuda.empty_cache()
+    summary, trained = sort_training(dev, smi, workdir, shards, step_case)
+    del step_case
+    log("sort", summary)
+    torch.cuda.empty_cache()
+    log("knobs", knob_teacher(dev))
+    torch.cuda.empty_cache()
+    log("knobs", knob_stop(workdir, shards))
+    torch.cuda.empty_cache()
+    log("knobs", knob_deep(dev))
+    log("sort", f"phase 30 took {time.perf_counter() - t0:.1f} s")
+    return reading, served + trained
+
 
 def main() -> None:
     # 1. Device.
@@ -3988,6 +4425,12 @@ def main() -> None:
         torch.cuda.empty_cache()
         route_kernels_read, route_launches = route_phase(
             dev, smi, workdir, workdir / "shards")
+
+        # 30: the deterministic splat (render.splat_method="sort") and the
+        # four refuted knobs, from phase 23's shards.
+        torch.cuda.empty_cache()
+        kernels["splat_sort"], total_sort = sort_phase(
+            dev, smi, workdir, workdir / "shards")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for name, c in (("shards", shard_counts), ("datasets", dataset_counts),
@@ -4017,6 +4460,9 @@ def main() -> None:
             fail(f"{name} was not launched by the route's main paths")
         total[name] = route_launches[name]
         kernels[name] = route_kernels_read[name]
+    if total_sort == 0:
+        fail("splat_sort was not launched by phase 30's main paths")
+    total["splat_sort"] = total_sort
     total["splat_fwd_highres"] = highres_counts["splat_fwd"]
     total["splat_vjp_highres"] = highres_counts["splat_vjp"]
     entries = [{
@@ -4032,6 +4478,7 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "lsi_tpu_torch/csrc/" + (
                 "splat_band.cu" if name == "splat_band"
+                else "splat_sort.cu" if name == "splat_sort"
                 else "splat_fwd.cu" if name.startswith("splat_fwd")
                 else "splat_bwd.cu"),
             "replaces": k["replaces"], "launches": total[name],

@@ -7,12 +7,13 @@ Both run under ``torch.inference_mode()``. :class:`LSIModel` bundles
 (config, network) and reads and writes the JAX package's ``.npz`` export,
 so a file round-trips between the two packages.
 
-``RenderConfig`` fields: ``zbuffer_scale``; ``use_pallas``, "auto" (the
-default: the exact splat), "off" and False the same, "on" and True the
-JAX package's TPU route, a vertical window of ``pallas_max_dy`` rows
-(``geometry.ldi.render_forward``); ``window_check``: on that route,
-``render`` warns when the window drops content. ``splat_method="sort"``
-raises ``ValueError`` (a TPU-only choice).
+``RenderConfig`` fields: ``zbuffer_scale``; ``splat_method``, "scatter"
+(the default, K1) or "sort" (K1-D: the same render, bitwise repeatable);
+``use_pallas``, "auto" (the default: the exact splat), "off" and False
+the same, "on" and True the JAX package's TPU route, a vertical window of
+``pallas_max_dy`` rows (``geometry.ldi.render_forward``);
+``window_check``: on that route, ``render`` warns when the window drops
+content.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ import torch
 
 from lsi_tpu_torch.config import Config, RenderConfig
 from lsi_tpu_torch.geometry import projection
-from lsi_tpu_torch.geometry.ldi import (LDI, render_forward,
-                                        resolve_use_pallas, warn_window_drop)
+from lsi_tpu_torch.geometry.ldi import (LDI, check_splat_method,
+                                        render_forward, resolve_use_pallas,
+                                        warn_window_drop)
 from lsi_tpu_torch.models.convert import (jax_from_state_dict,
                                           state_dict_from_jax)
 from lsi_tpu_torch.models.ldi_predictor import LDIPredictor
@@ -43,12 +45,9 @@ def default_intrinsics(batch: int, height: int, width: int,
 
 
 def check_render_config(config: RenderConfig) -> None:
-    """Reject the RenderConfig values the port does not implement."""
+    """Reject RenderConfig values that name no route or splat method."""
     resolve_use_pallas(config.use_pallas)  # raises on a value it does not know
-    if config.splat_method != "scatter":
-        raise ValueError(
-            f"splat_method={config.splat_method!r}: the port implements "
-            "only 'scatter'")
+    check_splat_method(config.splat_method)
 
 
 @torch.inference_mode()
@@ -77,6 +76,7 @@ def render(ldi: LDI, pose: torch.Tensor,
     check_render_config(config)
     out = render_forward(ldi, pose, K_trg=K_trg, out_hw=out_hw,
                          zbuffer_scale=config.zbuffer_scale,
+                         splat_method=config.splat_method,
                          use_pallas=config.use_pallas,
                          pallas_max_dy=config.pallas_max_dy,
                          check_window=config.window_check)

@@ -25,7 +25,7 @@ class ModelConfig:
     min_disparity: float = 0.01
     max_disparity: float = 1.0
     layer0_texture_from_input: bool = True
-    deep_heads_stopgrad_trunk: bool = False  # refuted knob; raises.
+    deep_heads_stopgrad_trunk: bool = False  # deep heads on a detached trunk.
     compute_dtype: str = "bfloat16"  # conv compute dtype (params stay f32).
     ordering_floor: float = 0.2
     ordering_cap: float = 1.0
@@ -37,7 +37,7 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     zbuffer_scale: float = 50.0
-    splat_method: str = "scatter"   # the port takes only "scatter".
+    splat_method: str = "scatter"   # "sort": the deterministic splat (K1-D).
     use_pallas: str = "auto"        # "on": the TPU kernels' windowed route.
     pallas_max_dy: int = 2          # that route's vertical window, in rows.
     window_check: bool = True       # count and warn what the window drops.
@@ -62,10 +62,10 @@ class LossConfig:
     consistency_disocc_only: bool = False
     consistency_anchor_weight: float = 0.0
     consistency_deep_only: bool = False
-    consistency_ema_teacher: bool = False
+    consistency_ema_teacher: bool = False  # targets from an EMA teacher.
     consistency_ema_decay: float = 0.999
-    photo_layer0_weight: float = 0.0
-    consistency_stop_step: int = 0
+    photo_layer0_weight: float = 0.0  # + a layer-0-only inverse warp.
+    consistency_stop_step: int = 0   # > 0: drop the pseudo-label from here.
     consistency_start_step: int = 0
 
 

@@ -50,13 +50,14 @@ def build_eval_step(cfg: Config):
     (``model.family="mpi"``) are psnr and ssim where the accumulated alpha
     exceeds 0.5, ``psnr_full``, ``coverage`` (the mean accumulated alpha)
     and the depth metrics of its expected source disparity. Renders take
-    ``cfg.render``'s route (``use_pallas``, ``pallas_max_dy``). Runs without
-    autograd."""
+    ``cfg.render``'s route (``use_pallas``, ``pallas_max_dy``) and an
+    LDI's its ``splat_method``. Runs without autograd."""
     rc = cfg.render
     route = dict(use_pallas=rc.use_pallas, pallas_max_dy=rc.pallas_max_dy)
     if cfg.model.family == "mpi":
         return functools.partial(_eval_step_mpi, route=route)
     zscale = rc.zbuffer_scale
+    route["splat_method"] = rc.splat_method
 
     @torch.no_grad()
     def eval_step(net: torch.nn.Module, batch: Batch):

@@ -6,7 +6,8 @@ config 5: predict once, render 60 poses). JAX renders the poses with
 :func:`render_forward` of the LDI repeated 8·B times, so a 60-view sweep
 launches the forward splat 8 times.
 
-The route is ``render_cfg.use_pallas``'s (``geometry.ldi.render_forward``):
+The route is ``render_cfg.use_pallas``'s and the splat
+``render_cfg.splat_method``'s (``geometry.ldi.render_forward``):
 exact under "auto" (the lax path JAX takes off the TPU), windowed at
 ``render.pallas_max_dy`` under "on". For the canonical sinusoidal sweep
 the share of the splat that window would drop is checked at the sweep's
@@ -53,6 +54,7 @@ def _render_poses(ldi: LDI, poses: torch.Tensor, render_cfg: RenderConfig,
         out = render_forward(_repeat(ldi, k),
                              p.repeat_interleave(b, dim=0),
                              zbuffer_scale=render_cfg.zbuffer_scale,
+                             splat_method=render_cfg.splat_method,
                              use_pallas=render_cfg.use_pallas,
                              pallas_max_dy=render_cfg.pallas_max_dy,
                              check_window=check)

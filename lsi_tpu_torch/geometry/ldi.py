@@ -17,8 +17,12 @@ plain versions for CPU tensors). ``use_pallas`` picks the semantics, as
 lax path; ``"on"`` and True are its TPU kernels' route, a vertical window
 of ``pallas_max_dy`` rows around each folded row's base row and snapped
 gather fractions, whose truncation ``window_dropped_frac`` reports
-(:func:`warn_window_drop` turns it into a warning). The height-sharded
-render (``parallel.spatial``) is held to the windowed render.
+(:func:`warn_window_drop` turns it into a warning). ``splat_method``
+picks the splat's kernel, as ``render.splat_method`` picks the lax splat
+in the JAX package: "scatter" (K1, float atomics) or "sort" (K1-D, the
+same sums in one fixed order: bitwise repeatable), on either route. The
+height-sharded render (``parallel.spatial``) is held to the windowed
+render.
 """
 
 from __future__ import annotations
@@ -53,6 +57,18 @@ def resolve_use_pallas(flag) -> bool:
         return True
     raise ValueError(
         f"use_pallas must be 'auto'|'on'|'off'|bool, got {flag!r}")
+
+
+SPLAT_METHODS = ("scatter", "sort")
+
+
+def check_splat_method(method: str) -> bool:
+    """True for ``"sort"`` (the deterministic splat, K1-D), False for
+    ``"scatter"``; ValueError on anything else, as JAX's
+    ``splat_bilinear`` raises."""
+    if method not in SPLAT_METHODS:
+        raise ValueError(f"unknown splat method: {method!r}")
+    return method == "sort"
 
 
 #: ``window_dropped_frac`` above which :func:`warn_window_drop` warns.
@@ -200,7 +216,8 @@ def window_dropped_fraction(coords: torch.Tensor, valid: torch.Tensor,
 
 def render_forward(ldi: LDI, pose_src2trg: torch.Tensor,
                    K_trg: Optional[torch.Tensor] = None, out_hw=None,
-                   zbuffer_scale: float = 50.0, use_pallas="auto",
+                   zbuffer_scale: float = 50.0,
+                   splat_method: str = "scatter", use_pallas="auto",
                    pallas_max_dy: int = 2, check_window: bool = True,
                    data_group=None):
     """Render an LDI into a novel view by forward splatting.
@@ -211,6 +228,8 @@ def render_forward(ldi: LDI, pose_src2trg: torch.Tensor,
       K_trg: (B, 3, 3) target intrinsics; defaults to the LDI's.
       out_hw: (Ho, Wo) target size; defaults to the LDI's (H, W).
       zbuffer_scale: soft z-buffer sharpness (weight = exp(scale * d)).
+      splat_method: "scatter" (K1) or "sort" (K1-D, deterministic): the
+        same function (:func:`check_splat_method`).
       use_pallas: "auto" (the default), "off" or False splat exactly;
         "on" or True take the TPU kernels' route (:func:`resolve_use_pallas`):
         every corner more than ``pallas_max_dy`` rows from its source
@@ -230,16 +249,15 @@ def render_forward(ldi: LDI, pose_src2trg: torch.Tensor,
     """
     h, w = ldi.height, ldi.width
     out_hw = (h, w) if out_hw is None else tuple(out_hw)
+    deterministic = check_splat_method(splat_method)
     payload, coords, weights, valid = splat_inputs(ldi, pose_src2trg, K_trg,
                                                    zbuffer_scale)
     # The window measures rows from r % H, so it holds only where the
     # target grid is the LDI's; other renders take the exact splat.
     windowed = resolve_use_pallas(use_pallas) and out_hw == (h, w)
-    if windowed:
-        accum, wsum = SplatFn.apply(payload, coords, weights, out_hw,
-                                    pallas_max_dy)
-    else:
-        accum, wsum = SplatFn.apply(payload, coords, weights, out_hw)
+    accum, wsum = SplatFn.apply(payload, coords, weights, out_hw,
+                                pallas_max_dy if windowed else -1, None, 0,
+                                deterministic)
     if windowed and check_window:
         dropped = window_dropped_fraction(coords.detach(), valid, out_hw,
                                           pallas_max_dy, data_group)

@@ -50,6 +50,18 @@ LIBRARIES = {
                            _I64, _I64, _INT, _INT, _I64, _I64, _INT, _INT,
                            _INT, _INT, _P],
     }),
+    # The deterministic splat (K1-D), a library of its own so that the
+    # other libraries' sources, hashes and code stay as they were.
+    "splat_sort": (("splat_sort.cu",), {
+        # coords, keys, n, src_h, src_w, out_h, out_w, snap, max_dy,
+        # fold_h, base_offset, stream
+        "lsi_splat_sort_keys": [_P, _P, _I64, _I64, _I64, _I64, _I64, _INT,
+                                _INT, _I64, _I64, _P],
+        # values, coords, weights, sorted_keys, order, accum, wsum, n,
+        # src_h, src_w, channels, out_h, out_w, snap, stream
+        "lsi_splat_sort_sum": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                               _INT, _I64, _I64, _INT, _P],
+    }),
     "splat_bwd": (("splat_bwd.cu",), {
         # values, coords, weights, g_accum, g_wsum, d_values, d_coords,
         # d_weights, n, src_h, src_w, channels, out_h, out_w, max_dy,

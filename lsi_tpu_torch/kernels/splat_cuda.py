@@ -10,11 +10,16 @@ The kernels are hand-written for sm_90a and bound through ctypes:
   band kernel ``lsi_splat_band`` (``lsi_tpu_torch/csrc/splat_band.cu``),
   launched as :func:`band_tiling` plans (:func:`use_band` gives the
   rule);
+* ``splat(..., deterministic=True)`` launches K1-D, the deterministic
+  splat of ``lsi_tpu_torch/csrc/splat_sort.cu`` (its keys kernel, a
+  stable ``torch.sort`` of the keys, its segment-sum kernel), replacing
+  the sort branch of ``lsi_tpu/ops/splat.py:splat_bilinear``
+  (``method="sort"``): the same function as K1, bitwise repeatable;
 * ``splat_vjp`` launches ``lsi_splat_vjp`` of
   ``lsi_tpu_torch/csrc/splat_bwd.cu``, replacing ``_splat_bwd_kernel``
   (K2) with the combine of ``splat_pallas_diff``'s backward (K3) fused in.
 
-Both follow the exact semantics of ``ops/splat.splat_bilinear`` (the JAX
+All follow the exact semantics of ``ops/splat.splat_bilinear`` (the JAX
 lax path), unwindowed or, with ``max_dy >= 0``, with the TPU kernel's
 vertical window (``fold_h``, ``base_offset``; the height-sharded render's
 splat); the source notes say what bounds each kernel on the card. A tensor on the CPU takes the plain version (``ops/splat.py``, its
@@ -320,8 +325,8 @@ def _check(values: torch.Tensor, coords: torch.Tensor, weights, out_hw
 
 def splat(values: torch.Tensor, coords: torch.Tensor, weights, out_hw,
           snap: bool = True, max_dy: int = -1, fold_h=None,
-          base_offset: int = 0):
-    """Forward-splat ``values`` into an ``out_hw`` image (K1).
+          base_offset: int = 0, deterministic: bool = False):
+    """Forward-splat ``values`` into an ``out_hw`` image (K1, or K1-D).
 
     Args:
       values:  (N, Hs, Ws, C) float32, C in 1..8; layers may be folded into
@@ -336,6 +341,10 @@ def splat(values: torch.Tensor, coords: torch.Tensor, weights, out_hw,
         whose row lies outside ``[base - max_dy, base + max_dy + 1]``,
         ``base = r % fold_h + base_offset`` for source row r
         (:func:`window_base_rows`); -1 (the default) is no window.
+      deterministic: the sort splat (``render.splat_method="sort"``):
+        K1-D on the card, ``splat_bilinear(method="sort")`` on the CPU;
+        the same function, summed in one fixed order, so two calls are
+        bitwise equal.
     Returns:
       accum (N, out_h, out_w, C) and wsum (N, out_h, out_w, 1), float32
       (wsum None without weights).
@@ -345,15 +354,56 @@ def splat(values: torch.Tensor, coords: torch.Tensor, weights, out_hw,
                              if t is not None))
     window = check_window(values.shape[1], int(out_hw[0]), max_dy, fold_h,
                           base_offset)
+    if deterministic:
+        check_sort_sizes(values.shape, out_hw)
     if not check_device(values.device):
         return splat_bilinear(
             values, coords, weights, out_hw, snap=snap,
             max_dy_window=None if window[0] < 0 else window[0],
             base_rows=window_base_rows(values.shape[1], int(out_hw[0]),
-                                       *window))
-
+                                       *window),
+            method="sort" if deterministic else "scatter")
+    if deterministic:
+        return _launch_sort(values, coords, weights, out_hw, snap, window)
     return _launch_splat(values, coords, weights, out_hw, snap,
                          window=window)
+
+
+def check_sort_sizes(values_shape, out_hw) -> None:
+    """Raise ValueError where K1-D's int32 keys cannot hold the splat: the
+    4 N Hs Ws corner positions must stay below 2^31 and the N out_h out_w
+    targets below INT_MAX (the dropped corners' key)."""
+    n, hs, ws, _ = (int(v) for v in values_shape)
+    out_h, out_w = (int(v) for v in out_hw)
+    if 4 * n * hs * ws >= 2**31 or n * out_h * out_w >= 2**31 - 1:
+        raise ValueError(
+            f"the deterministic splat's int32 keys cannot hold {4 * n * hs * ws}"
+            f" corners into {n * out_h * out_w} target pixels")
+
+
+def _launch_sort(values, coords, weights, out_hw, snap, window):
+    """K1-D on CUDA tensors: the keys kernel, a stable sort of the keys,
+    the segment-sum kernel (``csrc/splat_sort.cu``); counts one launch."""
+    n, hs, ws, c = values.shape
+    out_h, out_w = (int(v) for v in out_hw)
+    coords = aligned(coords, 8)  # read as float2
+    dev = values.device
+    keys = torch.empty(4 * n * hs * ws, dtype=torch.int32, device=dev)
+    build.launch("splat_sort", "lsi_splat_sort_keys", dev, coords.data_ptr(),
+                 keys.data_ptr(), n, hs, ws, out_h, out_w, int(snap),
+                 *window)
+    sorted_keys, order = torch.sort(keys, stable=True)
+    # Every output pixel is written.
+    accum = torch.empty((n, out_h, out_w, c), dtype=torch.float32,
+                        device=dev)
+    wsum = None if weights is None else torch.empty(
+        (n, out_h, out_w, 1), dtype=torch.float32, device=dev)
+    build.launch("splat_sort", "lsi_splat_sort_sum", dev, values.data_ptr(),
+                 coords.data_ptr(), _ptr(weights), sorted_keys.data_ptr(),
+                 order.data_ptr(), accum.data_ptr(), _ptr(wsum), n, hs, ws,
+                 c, out_h, out_w, int(snap))
+    splat.sort_launches += 1
+    return accum, wsum
 
 
 def _launch_splat(values, coords, weights, out_hw, snap, tiling=None,
@@ -403,12 +453,13 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-#: Kernel launches made through :func:`splat` (CPU calls do not count),
-#: how many of them were windowed, and how many of those took the band
-#: kernel.
+#: K1 launches made through :func:`splat` (CPU calls do not count), how
+#: many of them were windowed, and how many of those took the band kernel;
+#: and K1-D launches (``deterministic=True``), windowed or not.
 splat.launches = 0
 splat.window_launches = 0
 splat.band_launches = 0
+splat.sort_launches = 0
 
 
 def _plain_vjp(values, coords, weights, g_accum, g_wsum, out_hw, needs,
@@ -479,31 +530,35 @@ splat_vjp.window_launches = 0
 
 
 class SplatFn(torch.autograd.Function):
-    """Differentiable splat: K1 forward, K2 + K3 backward.
+    """Differentiable splat: K1 (or K1-D) forward, K2 + K3 backward.
 
     ``SplatFn.apply(values, coords, weights, out_hw) -> (accum, wsum)``;
     ``SplatFn.apply(values, coords, weights, out_hw, max_dy, fold_h,
     base_offset)`` is the windowed splat (:func:`splat`), whose gradients
-    are the window's too. The backward computes only the gradients
-    autograd asks for.
+    are the window's too; a last argument ``deterministic=True`` takes
+    K1-D forward (``render.splat_method="sort"``). The backward is
+    ``lsi_splat_vjp`` either way: the gradient of JAX's sort path is the
+    scatter path's, and K2 adds no atomics. It computes only the
+    gradients autograd asks for.
     """
 
     @staticmethod
     def forward(ctx, values, coords, weights, out_hw, max_dy=-1, fold_h=None,
-                base_offset=0):
+                base_offset=0, deterministic=False):
         ctx.out_hw = tuple(int(v) for v in out_hw)
         ctx.window = dict(max_dy=max_dy, fold_h=fold_h,
                           base_offset=base_offset)
         ctx.save_for_backward(values, coords, weights)
-        return splat(values, coords, weights, ctx.out_hw, **ctx.window)
+        return splat(values, coords, weights, ctx.out_hw, **ctx.window,
+                     deterministic=deterministic)
 
     @staticmethod
     def backward(ctx, g_accum, g_wsum):
         needs = ctx.needs_input_grad[:3]
         if not any(needs):
-            return None, None, None, None, None, None, None
+            return (None,) * 8
         values, coords, weights = ctx.saved_tensors
         d_values, d_coords, d_weights = splat_vjp(
             values, coords, weights, g_accum.float().contiguous(),
             g_wsum.float().contiguous(), ctx.out_hw, needs, **ctx.window)
-        return d_values, d_coords, d_weights, None, None, None, None
+        return (d_values, d_coords, d_weights) + (None,) * 5

@@ -25,8 +25,12 @@ that a data-parallel step computes the global batch's loss and gradient,
 as JAX's sharded step does (a mean of per-rank ratios would be another
 number).
 
-The refuted knobs ``photo_layer0_weight``, ``consistency_ema_teacher``
-and ``consistency_stop_step`` are not ported (ROADMAP "Do not port").
+Every render takes ``render_cfg.splat_method``: "scatter" (K1) or the
+deterministic "sort" (K1-D), as JAX threads it. ``photo_layer0_weight``
+adds the layer-0-only inverse warp (``photo_layer0``), and the
+two-prediction loss takes the EMA teacher's predictions as its
+consistency targets (``ldi_src_teacher``/``ldi_trg_teacher``; the
+trainer's ``consistency_ema_teacher``).
 """
 
 from __future__ import annotations
@@ -55,15 +59,9 @@ BIG_ERROR = 1e3
 
 
 def check_loss_config(loss_cfg: LossConfig) -> None:
-    """Reject the loss options the port does not implement."""
+    """Reject a ``photo_mode`` that names no loss."""
     if loss_cfg.photo_mode not in ("inverse_warp", "splat", "both"):
         raise ValueError(f"unknown photo_mode {loss_cfg.photo_mode!r}")
-    for knob in ("photo_layer0_weight", "consistency_ema_teacher",
-                 "consistency_stop_step"):
-        if getattr(loss_cfg, knob):
-            raise NotImplementedError(
-                f"{knob} is a refuted knob and is not ported (ROADMAP "
-                "'Do not port')")
 
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
@@ -210,6 +208,7 @@ def view_synthesis_splat(ldi: LDI, target_image: torch.Tensor,
     out = render_forward(ldi, pose_src2trg, K_trg=K_trg,
                          out_hw=tuple(target_image.shape[1:3]),
                          zbuffer_scale=render_cfg.zbuffer_scale,
+                         splat_method=render_cfg.splat_method,
                          use_pallas=render_cfg.use_pallas,
                          pallas_max_dy=render_cfg.pallas_max_dy,
                          check_window=render_cfg.window_check,
@@ -281,6 +280,11 @@ def depth_consistency(ldi_src: LDI, ldi_trg: LDI,
     splat weight: disoccluded pixels carry only deep-layer weight, about
     ``exp(-scale)`` after the soft-z shift, and the VJP's division by that
     weight must stay inside float32.
+
+    The render and the disocclusion mask take ``render_cfg``'s route and
+    splat method. (JAX's mask renders with "scatter" whatever the method;
+    the mask is ``coverage <= 0`` of the same sums, so it is the same
+    mask, and a "sort" step stays deterministic.)
     """
     if deep_only:
         d = ldi_src.disparities
@@ -288,6 +292,7 @@ def depth_consistency(ldi_src: LDI, ldi_trg: LDI,
             ldi_src, disparities=torch.cat([d[:, :1].detach(), d[:, 1:]], 1))
     out_hw = tuple(ldi_trg.disparities.shape[2:4])
     route = dict(zbuffer_scale=render_cfg.zbuffer_scale,
+                 splat_method=render_cfg.splat_method,
                  use_pallas=render_cfg.use_pallas,
                  pallas_max_dy=render_cfg.pallas_max_dy)
     out = render_forward(ldi_src, pose_src2trg, K_trg=K_trg, out_hw=out_hw,
@@ -326,6 +331,8 @@ def total_loss(ldi: LDI, target_image: torch.Tensor,
                data_group=None) -> Dict[str, torch.Tensor]:
     """Assemble the configured loss: ``{"total", parts..., diagnostics}``.
 
+    With ``photo_layer0_weight`` > 0 (and L > 1) ``photo_layer0`` is the
+    inverse warp of the layer-0-only LDI, without the min over layers.
     Diagnostics (``window_dropped_frac``) ride along and are NOT summed
     into ``total``. With a ``data_group`` the parts are the global batch's
     (module docstring).
@@ -349,6 +356,18 @@ def total_loss(ldi: LDI, target_image: torch.Tensor,
             data_group=data_group)
         parts["photo_splat"] = loss_cfg.splat_weight * splat_loss
         diags.update(diag)
+    if loss_cfg.photo_layer0_weight > 0 and ldi.textures.shape[1] > 1:
+        # Layer 0 alone must explain the visible scene: the min over layers
+        # cannot hand its photometric job to the deeper layers.
+        layer0 = LDI(textures=ldi.textures[:, :1],
+                     disparities=ldi.disparities[:, :1],
+                     intrinsics=ldi.intrinsics)
+        parts["photo_layer0"] = (
+            loss_cfg.photo_layer0_weight
+            * view_synthesis_inverse_warp(
+                layer0, target_image, pose_src2trg, K_trg,
+                min_over_layers=False, render_cfg=render_cfg,
+                data_group=data_group))
     if loss_cfg.smoothness_weight > 0:
         parts["smoothness"] = (
             loss_cfg.smoothness_weight
@@ -374,7 +393,10 @@ def total_loss_bidirectional(ldi_src: LDI, ldi_trg: LDI,
                              render_cfg: RenderConfig,
                              gt_disparity: Optional[torch.Tensor] = None,
                              gt_valid: Optional[torch.Tensor] = None,
-                             data_group=None) -> Dict[str, torch.Tensor]:
+                             data_group=None,
+                             ldi_src_teacher: Optional[LDI] = None,
+                             ldi_trg_teacher: Optional[LDI] = None
+                             ) -> Dict[str, torch.Tensor]:
     """The two-prediction loss (an LDI predicted from each view):
 
     * :func:`total_loss` of the source prediction against the target;
@@ -386,6 +408,11 @@ def total_loss_bidirectional(ldi_src: LDI, ldi_trg: LDI,
     * with ``consistency_anchor_weight``, the ``visible_only`` consistency
       in both directions (``depth_anchor``).
 
+    With ``ldi_src_teacher``/``ldi_trg_teacher`` (the EMA teacher's
+    predictions, constants) the consistency and anchor targets come from
+    the teacher instead of the other live prediction; the rendered side
+    and the photometric terms are unchanged.
+
     Diagnostics ride along un-summed, as in :func:`total_loss`, and
     ``data_group`` is :func:`total_loss`'s.
     """
@@ -394,6 +421,8 @@ def total_loss_bidirectional(ldi_src: LDI, ldi_trg: LDI,
                        gt_valid=gt_valid, data_group=data_group)
     total = parts.pop("total")
     pose_trg2src = invert_pose(pose_src2trg)
+    trg_label = ldi_trg if ldi_trg_teacher is None else ldi_trg_teacher
+    src_label = ldi_src if ldi_src_teacher is None else ldi_src_teacher
     if loss_cfg.symmetric:
         rev = total_loss(ldi_trg, src_image, pose_trg2src, loss_cfg,
                          render_cfg, data_group=data_group)
@@ -411,9 +440,9 @@ def total_loss_bidirectional(ldi_src: LDI, ldi_trg: LDI,
         terms.append(("depth_anchor", loss_cfg.consistency_anchor_weight,
                       dict(visible_only=True)))
     for name, weight, kw in terms:
-        both = (depth_consistency(ldi_src, ldi_trg, pose_src2trg,
+        both = (depth_consistency(ldi_src, trg_label, pose_src2trg,
                                   render_cfg, data_group=data_group, **kw)
-                + depth_consistency(ldi_trg, ldi_src, pose_trg2src,
+                + depth_consistency(ldi_trg, src_label, pose_trg2src,
                                     render_cfg, data_group=data_group,
                                     **kw))
         parts[name] = weight * both

@@ -5,8 +5,11 @@ pass). L disparity maps come from sigmoids with the depth ordering built
 in multiplicatively (deeper layer = smaller disparity by construction);
 layer 0's texture is the input image unless
 ``layer0_texture_from_input=False``, and the other textures are predicted.
-Also the layer-0/deep parameter partition: ``freeze_layer0_grad_mask``
-and ``splice_layer0_params``.
+With ``deep_heads_stopgrad_trunk`` (and L > 1) the deep layers' heads
+read the trunk through ``detach()`` and a private 3x3 conv with a ReLU
+(``deep_trunk``), so their training cannot move the trunk. Also the
+layer-0/deep parameter partition: ``freeze_layer0_grad_mask`` and
+``splice_layer0_params``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,12 @@ def _layer0_owned_channels(cfg: ModelConfig, name: str) -> int:
     depends on: -1 for the whole tensor (the shared UNet trunk), N for the
     leading N output channels (channel 0 of ``disp_head``; channels 0-2 of
     ``tex_head`` when layer 0's texture is predicted), 0 for none. Output
-    channels are dim 0 of a conv weight and of its bias."""
+    channels are dim 0 of a conv weight and of its bias.
+
+    With ``deep_heads_stopgrad_trunk`` the heads ``disp_head`` (1 channel)
+    and ``tex_head`` (3, when layer 0's texture is predicted) are layer 0's
+    alone, so their leading slice is the whole tensor, and ``deep_trunk``,
+    ``disp_head_deep`` and ``tex_head_deep`` count 0."""
     module = name.split(".")[0]
     if module == "unet":
         return -1
@@ -98,7 +106,8 @@ def splice_layer0_params(cfg: ModelConfig, live: Dict[str, torch.Tensor],
 
 class LDIPredictor(nn.Module):
     """Parameter names mirror the Flax module: ``unet`` (``UNet_0``),
-    ``disp_head`` and ``tex_head``."""
+    ``disp_head`` and ``tex_head``, and with ``deep_heads_stopgrad_trunk``
+    ``deep_trunk``, ``disp_head_deep`` and ``tex_head_deep``."""
 
     def __init__(self, config: ModelConfig = ModelConfig()):
         super().__init__()
@@ -106,18 +115,26 @@ class LDIPredictor(nn.Module):
             raise ValueError(f"LDIPredictor builds family 'ldi', not "
                              f"{config.family!r} (models.build_model "
                              "dispatches on the family)")
-        if config.deep_heads_stopgrad_trunk:
-            raise NotImplementedError(
-                "deep_heads_stopgrad_trunk is a refuted knob and is not "
-                "ported (ROADMAP 'Do not port')")
         self.config = config
         dtype = compute_dtype(config)
         l = config.num_layers
         f = config.base_filters
+        self.isolated = config.deep_heads_stopgrad_trunk and l > 1
         self.unet = UNet(3, f, config.num_scales, dtype)
-        self.disp_head = Conv3x3(f, l)
         self.num_tex = l - 1 if config.layer0_texture_from_input else l
-        self.tex_head = Conv3x3(f, self.num_tex * 3) if self.num_tex else None
+        if self.isolated:
+            # Layer 0's heads on the live trunk, the deep layers' on the
+            # private branch.
+            self.deep_trunk = Conv3x3(f, f)
+            self.disp_head = Conv3x3(f, 1)
+            self.disp_head_deep = Conv3x3(f, l - 1)
+            self.tex_head = (None if config.layer0_texture_from_input
+                             else Conv3x3(f, 3))
+            self.tex_head_deep = Conv3x3(f, (l - 1) * 3)
+        else:
+            self.disp_head = Conv3x3(f, l)
+            self.tex_head = (Conv3x3(f, self.num_tex * 3) if self.num_tex
+                             else None)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         """Flax's default init, drawn from ``generator`` in module order."""
@@ -131,24 +148,40 @@ class LDIPredictor(nn.Module):
 
         # NHWC -> NCHW view: channels_last in memory.
         feats = self.unet(image.permute(0, 3, 1, 2))
+        if self.isolated:
+            # The deep heads' branch reads the trunk without its gradient.
+            feats_deep = torch.relu(self.deep_trunk(feats.detach()))
+            raw_disp = torch.cat([self.disp_head(feats),
+                                  self.disp_head_deep(feats_deep)], dim=1)
+        else:
+            raw_disp = self.disp_head(feats)
 
         # Layer 0: d0 = dmin + (dmax - dmin) * sigmoid(raw0).
-        # Layer i>0: d_i = d_{i-1} * (r + (cap - r) * sigmoid(raw_i)).
-        sig = torch.sigmoid(self.disp_head(feats).float())  # (B, L, H, W)
+        # Layer i>0: d_i = d_{i-1} * (r + (cap - r) * sigmoid(raw_i)); on
+        # the isolated branch d_{i-1} is detached, so a deep layer's loss
+        # cannot reach layer 0 through the product either.
+        sig = torch.sigmoid(raw_disp.float())  # (B, L, H, W)
         d0 = (cfg.min_disparity
               + (cfg.max_disparity - cfg.min_disparity) * sig[:, 0])
         disps = [d0]
         for i in range(1, l):
             ratio = (cfg.ordering_floor
                      + (cfg.ordering_cap - cfg.ordering_floor) * sig[:, i])
-            disps.append(disps[-1] * ratio)
+            base = disps[-1].detach() if self.isolated else disps[-1]
+            disps.append(base * ratio)
         disparity = torch.stack(disps, dim=1)[..., None]  # (B, L, H, W, 1)
 
         chunks = []
         if cfg.layer0_texture_from_input:
             chunks.append(image.float()[:, None])  # (B, 1, H, W, 3)
         if self.num_tex:
-            tex = torch.sigmoid(self.tex_head(feats).float())
+            if self.isolated:
+                raw_tex = torch.cat(
+                    ([] if self.tex_head is None else [self.tex_head(feats)])
+                    + [self.tex_head_deep(feats_deep)], dim=1)
+            else:
+                raw_tex = self.tex_head(feats)
+            tex = torch.sigmoid(raw_tex.float())
             # Channel 3k + c is layer k's colour c, as in the Flax head.
             tex = tex.reshape(b, self.num_tex, 3, h, w).permute(0, 1, 3, 4, 2)
             chunks.append(tex)

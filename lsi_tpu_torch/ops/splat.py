@@ -1,13 +1,14 @@
 """Forward bilinear splat (scatter-add) and its tent sums: the plain
 PyTorch versions.
 
-PyTorch counterpart of ``lsi_tpu/ops/splat.py`` (``method="scatter"``,
-with its optional per-corner vertical window, ``max_dy_window`` and
-``base_rows``). ``splat_bilinear`` is the CPU path of
-``kernels.splat_cuda.splat`` (K1) and, through autograd, of its VJP (K2 +
-K3), windowed or not; ``tent_sums`` is the plain form of the per-pixel
-sums those kernels and the gather kernels compute. The CUDA kernels are
-held against these on the card.
+PyTorch counterpart of ``lsi_tpu/ops/splat.py`` (``method="scatter"``
+and the deterministic ``method="sort"``, with the optional per-corner
+vertical window, ``max_dy_window`` and ``base_rows``). ``splat_bilinear``
+is the CPU path of ``kernels.splat_cuda.splat`` (K1, and K1-D for
+``"sort"``) and, through autograd, of its VJP (K2 + K3), windowed or not;
+``tent_sums`` is the plain form of the per-pixel sums those kernels and
+the gather kernels compute. The CUDA kernels are held against these on
+the card.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ def snap_fraction(f: torch.Tensor) -> torch.Tensor:
 
 def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
                    weights: torch.Tensor, out_hw, snap: bool = True,
-                   max_dy_window=None, base_rows=None):
+                   max_dy_window=None, base_rows=None,
+                   method: str = "scatter"):
     """Forward-splat per-pixel values into a target image.
 
     Args:
@@ -51,11 +53,44 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
         (the windowed contract of the TPU splat kernel, which the
         height-sharded render relies on). ``base`` is the source row's
         base row: ``base_rows`` (Hs,) integers, or ``row % out_h``.
+      method: "scatter" (one ``index_add_`` of every corner) or "sort"
+        (JAX's deterministic path: a stable argsort of the corner targets,
+        corner-major ``(4, N, P)``, then each target's run summed in that
+        order from 0.0; bitwise repeatable on the CPU).
     Returns:
       accum (N, out_h, out_w, C) float32 sum of ``w * frac * v`` and
       wsum (N, out_h, out_w, 1) float32 sum of ``w * frac`` (None without
       weights).
     """
+    if method not in ("scatter", "sort"):
+        raise ValueError(f"unknown splat method: {method!r}")
+    out_h, out_w = out_hw
+    n, _, _, c = values.shape
+    idx, contrib = corner_contributions(values, coords, weights, out_hw,
+                                        snap, max_dy_window, base_rows)
+    if method == "sort":
+        # The trash row sorts last, where JAX's index -1 sorts first into
+        # a segment it slices off: the live targets' runs keep their
+        # corner-major order either way. index_add_ on the CPU adds its
+        # rows in index order, so each run is summed in sorted order.
+        order = torch.argsort(idx, stable=True)
+        idx, contrib = idx[order], contrib[order]
+    trash = n * out_h * out_w
+    out = torch.zeros(trash + 1, contrib.shape[-1], dtype=torch.float32,
+                      device=values.device)
+    out.index_add_(0, idx, contrib)
+    out = out[:trash].reshape(n, out_h, out_w, -1)
+    return out[..., :c], (None if weights is None else out[..., c:])
+
+
+def corner_contributions(values: torch.Tensor, coords: torch.Tensor,
+                         weights, out_hw, snap: bool = True,
+                         max_dy_window=None, base_rows=None):
+    """The flat scatter :func:`splat_bilinear` sums, corner-major:
+    ``(idx (4 N P,) int64, contrib (4 N P, C + 1) float32)``, the target
+    index of each corner (``N * out_h * out_w``, one trash row past the
+    end, where it is dropped) and its contribution ``[w v, w] * frac``
+    (``v * frac`` without weights)."""
     out_h, out_w = out_hw
     n, hs, ws, c = values.shape
     p = hs * ws
@@ -79,10 +114,10 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
         fx = snap_fraction(fx)
         fy = snap_fraction(fy)
 
-    # Out-of-image corners go to one trash row past the end, sliced off
-    # below. The bounds test is made in float, and only in-bounds
-    # coordinates reach the integer conversion: projected coordinates reach
-    # ~1e6 (and may be inf/nan), where a float->int cast is undefined.
+    # Out-of-image corners go to one trash row past the end. The bounds
+    # test is made in float, and only in-bounds coordinates reach the
+    # integer conversion: projected coordinates reach ~1e6 (and may be
+    # inf/nan), where a float->int cast is undefined.
     trash = n * out_h * out_w
     batch_off = (torch.arange(n, device=dev, dtype=torch.int64)
                  * (out_h * out_w))[:, None]
@@ -115,10 +150,7 @@ def splat_bilinear(values: torch.Tensor, coords: torch.Tensor,
     idx = torch.stack(idxs).reshape(-1)                     # (4*N*P,)
     contrib = (payload[None] * torch.stack(wts)[..., None]).reshape(-1,
                                                                      planes)
-    out = torch.zeros(trash + 1, planes, dtype=torch.float32, device=dev)
-    out.index_add_(0, idx, contrib)
-    out = out[:trash].reshape(n, out_h, out_w, planes)
-    return out[..., :c], (None if weights is None else out[..., c:])
+    return idx, contrib
 
 
 def corner_reads(image: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor):

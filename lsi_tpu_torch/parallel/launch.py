@@ -117,7 +117,8 @@ def launch_counts() -> Dict[str, int]:
             "gather_fwd": gather_cuda.gather_fwd.launches,
             "gather_bwd_coords": gather_cuda.gather_bwd_coords.launches,
             "splat_fwd_window": splat_cuda.splat.window_launches,
-            "splat_vjp_window": splat_cuda.splat_vjp.window_launches}
+            "splat_vjp_window": splat_cuda.splat_vjp.window_launches,
+            "splat_sort": splat_cuda.splat.sort_launches}
 
 
 def _since(before: Dict[str, int]) -> Dict[str, int]:
@@ -129,9 +130,11 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().copy()
 
 
-def spatial_render(plan, arrays, pose, zbuffer_scale, max_dy, target=None):
+def spatial_render(plan, arrays, pose, zbuffer_scale, max_dy, target=None,
+                   splat_method="scatter"):
     """The height-sharded render of a global LDI (``arrays``: textures,
-    disparities, intrinsics as numpy) on this rank's shard.
+    disparities, intrinsics as numpy) on this rank's shard, its splat
+    ``splat_method``'s.
 
     Returns this rank's (data index, space index), its rows of rgb,
     disparity and coverage and the kernel launches of the render (and its
@@ -154,7 +157,8 @@ def spatial_render(plan, arrays, pose, zbuffer_scale, max_dy, target=None):
     before = launch_counts()
     out = render_forward_spatial(ldi, pose_t, plan,
                                  zbuffer_scale=zbuffer_scale,
-                                 pallas_max_dy=max_dy)
+                                 pallas_max_dy=max_dy,
+                                 splat_method=splat_method)
     res = {"data_rank": plan.data_rank, "space_rank": plan.space_rank,
            **{k: _np(v) for k, v in out.items()}}
     if target is not None:

@@ -18,7 +18,9 @@ single-device render with the same window
 (``geometry.ldi.render_forward(..., use_pallas="on", pallas_max_dy=...)``),
 whose splat inputs (``geometry.ldi.splat_inputs``) it builds for its rows.
 The window is the same under either ``render.use_pallas`` route: a
-height shard needs it whatever the route.
+height shard needs it whatever the route. ``splat_method="sort"`` takes
+the deterministic splat (K1-D) for the shard's splat, as JAX's lax halo
+render takes its sort path.
 
 The exchange is differentiable (:class:`HaloExchange`: its backward sends
 the cotangent strips back, as ``ppermute`` transposes), so the LDI
@@ -33,7 +35,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from lsi_tpu_torch.geometry.ldi import LDI, composite, splat_inputs
+from lsi_tpu_torch.geometry.ldi import (LDI, check_splat_method, composite,
+                                        splat_inputs)
 from lsi_tpu_torch.kernels.splat_cuda import SplatFn
 from lsi_tpu_torch.parallel.mesh import ProcessPlan, batch_slice, send_recv
 from lsi_tpu_torch.parallel.reduce import all_reduce
@@ -99,7 +102,8 @@ def render_forward_spatial(ldi: LDI, pose_src2trg: torch.Tensor,
                            plan: ProcessPlan,
                            K_trg: Optional[torch.Tensor] = None,
                            zbuffer_scale: float = 50.0,
-                           pallas_max_dy: int = 2):
+                           pallas_max_dy: int = 2,
+                           splat_method: str = "scatter"):
     """Height-sharded ``geometry.ldi.render_forward(..., use_pallas="on",
     pallas_max_dy=pallas_max_dy)`` with halo exchange.
 
@@ -109,10 +113,12 @@ def render_forward_spatial(ldi: LDI, pose_src2trg: torch.Tensor,
         ``plan.space_rank * hd``.
       pose_src2trg, K_trg: this rank's examples' (B_local, ...).
       pallas_max_dy: the splat's vertical window (JAX's name).
+      splat_method: "scatter" (K1) or "sort" (K1-D, deterministic).
     Returns rgb (B_local, hd, W, 3), disparity and coverage (.., 1): this
     rank's rows of the windowed render.
     """
     hd = ldi.height
+    deterministic = check_splat_method(splat_method)
     pad = pallas_max_dy + 2          # max vertical splat reach (+1 corner)
     if pad > hd:
         raise ValueError(
@@ -127,7 +133,8 @@ def render_forward_spatial(ldi: LDI, pose_src2trg: torch.Tensor,
     payload, coords, weights, out_hw, window = shard_splat_args(
         ldi, pose_src2trg, K_trg, zbuffer_scale, row0, pallas_max_dy,
         space_max)
-    accum, wsum = SplatFn.apply(payload, coords, weights, out_hw, *window)
+    accum, wsum = SplatFn.apply(payload, coords, weights, out_hw, *window,
+                                deterministic)
     out = torch.cat([accum, wsum], dim=-1)  # (B, hd + 2 pad, W, 5)
     off = window[2]
     mid, bot = out[:, off:off + hd], out[:, off + hd:off + hd + pad]

@@ -4,7 +4,10 @@ PyTorch counterpart of ``lsi_tpu/train/checkpoint.py``. Orbax gives way to
 ``torch.save`` of the parameters, the optimizer state and the step, one
 file per step, written to a temporary name and renamed into place (a crash
 leaves the previous checkpoint or the new one, never a torn file), with
-the oldest files removed past ``max_to_keep``.
+the oldest files removed past ``max_to_keep``. A state with an EMA
+teacher (``loss.consistency_ema_teacher``) saves and restores its
+``ema_params`` too; the eval reads ``params`` alone (``restore_raw``), as
+JAX's eval does, so it takes either kind of checkpoint.
 
 The ``.npz`` export keeps the JAX package's key format: '/'-joined Flax
 parameter paths, Flax layouts, and ``__meta_<name>`` scalars inside the
@@ -58,6 +61,8 @@ class CheckpointManager:
         blob = {"step": int(state.step),
                 "params": _to_cpu(state.net.state_dict()),
                 "opt_state": opt}
+        if state.ema_params is not None:
+            blob["ema_params"] = _to_cpu(state.ema_params)
         path = self._path(step)
         torch.save(blob, path + ".tmp")
         os.replace(path + ".tmp", path)
@@ -65,8 +70,9 @@ class CheckpointManager:
             os.remove(self._path(old))
 
     def restore_raw(self, step: Optional[int] = None) -> Optional[dict]:
-        """The saved dict (``step``, ``params``, ``opt_state``) on the CPU,
-        or None when there is no checkpoint."""
+        """The saved dict (``step``, ``params``, ``opt_state`` and, from a
+        teacher's run, ``ema_params``) on the CPU, or None when there is
+        no checkpoint."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
@@ -86,6 +92,12 @@ class CheckpointManager:
             opt[key] = {k: v.to(dev) for k, v in opt[key].items()}
         state.opt_state = type(state.opt_state)(**opt)
         state.step = int(raw["step"])
+        if state.ema_params is not None:
+            if "ema_params" not in raw:
+                raise KeyError("the checkpoint holds no ema_params for the "
+                               "EMA teacher (loss.consistency_ema_teacher)")
+            state.ema_params = {k: v.to(dev)
+                                for k, v in raw["ema_params"].items()}
         return state
 
 

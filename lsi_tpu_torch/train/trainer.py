@@ -37,9 +37,15 @@ global batch's gradient and every rank applies the same update.
 ``train.remat_decoder`` recomputes the network's forward in the
 backward instead of keeping its activations (JAX: ``jax.checkpoint``
 around the model apply; here ``torch.utils.checkpoint`` around every call
-of the network in the step, :func:`apply_net`). The refuted knobs (the
-EMA teacher, ``consistency_stop_step``) are not ported (ROADMAP "Do not
-port").
+of the network in the step, :func:`apply_net`).
+
+``loss.consistency_ema_teacher`` keeps an EMA (mean-teacher) copy of the
+parameters in ``TrainState.ema_params``: the teacher's pair of
+predictions, made without autograd, gives the consistency and anchor
+targets, and after every update the copy moves toward the parameters by
+the ramp ``d = min(consistency_ema_decay, (t + 1) / (t + 10))`` at the
+step count t before the update. ``loss.consistency_stop_step`` switches
+the Trainer to a step without the pseudo-label term (the anchor kept).
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
@@ -187,14 +194,40 @@ class Optimizer:
 @dataclasses.dataclass
 class TrainState:
     """The network (its parameters: an ``LDIPredictor`` or an
-    ``MPIPredictor``), the optimizer state and the number of steps taken,
-    applied or skipped."""
+    ``MPIPredictor``), the optimizer state, the number of steps taken,
+    applied or skipped, and with ``loss.consistency_ema_teacher`` the EMA
+    teacher's parameters by name (None without)."""
     net: torch.nn.Module
     opt_state: OptState
     step: int = 0
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.net.named_parameters())
+
+
+def ema_decay(cfg: Config, step: int) -> float:
+    """The teacher's decay after the update of step ``step`` (the count
+    before it), in float32 as JAX computes it: ``min(decay, (t + 1) /
+    (t + 10))``."""
+    t = np.float32(step)
+    return float(np.minimum(np.float32(cfg.loss.consistency_ema_decay),
+                            (t + np.float32(1)) / (t + np.float32(10))))
+
+
+def update_ema(cfg: Config, state: TrainState) -> None:
+    """``ema = ema * d + params * (1 - d)`` in place, d = :func:`ema_decay`
+    at ``state.step`` (not yet incremented)."""
+    d = ema_decay(cfg, state.step)
+    keep = float(np.float32(1) - np.float32(d))
+    with torch.no_grad():
+        for k, p in state.params().items():
+            state.ema_params[k].mul_(d).add_(p * keep)
+
+
+def ema_copy(state: TrainState) -> Dict[str, torch.Tensor]:
+    """A copy of the parameters: the teacher at init or after a rollback."""
+    return {k: p.detach().clone() for k, p in state.net.named_parameters()}
 
 
 def check_train_config(cfg: Config) -> None:
@@ -214,8 +247,11 @@ def create_state(cfg: Config, seed: int = 0, device="cuda") -> TrainState:
     net = build_model(cfg.model)
     net.reset_parameters(torch.Generator().manual_seed(seed))
     net = net.to(device)
-    return TrainState(net=net, opt_state=Optimizer(cfg).init(
+    state = TrainState(net=net, opt_state=Optimizer(cfg).init(
         {k: p.detach() for k, p in net.named_parameters()}))
+    if cfg.loss.consistency_ema_teacher:
+        state.ema_params = ema_copy(state)
+    return state
 
 
 def _truncate_ldi(ldi: LDI, num_layers: int) -> LDI:
@@ -263,7 +299,10 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
     two-prediction config (``symmetric``, ``consistency_weight``,
     ``consistency_anchor_weight``) predicts from both views in one forward
     and takes ``total_loss_bidirectional``, except in the
-    ``stage_layer0`` step, which keeps the single prediction. With a
+    ``stage_layer0`` step, which keeps the single prediction; with
+    ``consistency_ema_teacher`` and a consistency or anchor term, the
+    EMA parameters' pair of predictions (under ``no_grad``) gives those
+    terms' targets. With a
     ``data_group`` (``ProcessPlan.batch_group``) the parts are the global
     batch's and the gradients this rank's share of the global gradient
     (``parallel.reduce``). Every call of the network goes through
@@ -275,6 +314,10 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
     two_predictions = not mpi and (lc.consistency_weight > 0
                                    or lc.consistency_anchor_weight > 0
                                    or lc.symmetric)
+    use_teacher = (two_predictions and lc.consistency_ema_teacher
+                   and not stage_layer0
+                   and (lc.consistency_weight > 0
+                        or lc.consistency_anchor_weight > 0))
     with record_function("train_step/forward_loss"):
         batch = decode_batch(batch)
         if mpi:
@@ -289,11 +332,20 @@ def loss_and_grads(state: TrainState, batch: Batch, cfg: Config,
             pred, pred_trg = apply_model_pair(
                 state.net, batch.src_image, batch.trg_image, batch.intrinsics,
                 remat)
+            teachers = {}
+            if use_teacher:
+                # The mean teacher's targets: constants of the step.
+                with torch.no_grad():
+                    t_src, t_trg = apply_model_pair(
+                        lambda im, k: functional_call(
+                            state.net, state.ema_params, (im, k)),
+                        batch.src_image, batch.trg_image, batch.intrinsics)
+                teachers = dict(ldi_src_teacher=t_src, ldi_trg_teacher=t_trg)
             parts = total_loss_bidirectional(
                 pred, pred_trg, batch.src_image, batch.trg_image,
                 batch.pose_src2trg, cfg.loss, cfg.render,
                 gt_disparity=batch.gt_disparity, gt_valid=batch.gt_valid,
-                data_group=data_group)
+                data_group=data_group, **teachers)
         else:
             pred = apply_net(state.net, batch.src_image, batch.intrinsics,
                              remat)
@@ -328,7 +380,8 @@ def make_train_step(cfg: Config, stage_layer0: bool = False,
     the deep heads get no gradient. With ``freeze_layer0`` the gradients
     AND the updates of every parameter entry layer 0's output depends on
     are zeroed, so layer 0 stays bitwise constant
-    (``models.ldi_predictor.freeze_layer0_grad_mask``).
+    (``models.ldi_predictor.freeze_layer0_grad_mask``). Every variant
+    moves the EMA teacher where the state holds one (:func:`update_ema`).
 
     With a ``plan`` whose data axis has several ranks, ``batch`` is this
     rank's share of the global batch, and the loss parts, ``grad_norm``
@@ -355,6 +408,8 @@ def make_train_step(cfg: Config, stage_layer0: bool = False,
                 with torch.no_grad():
                     for k, p in state.params().items():
                         p.add_(updates[k])
+            if state.ema_params is not None:
+                update_ema(cfg, state)
         state.step += 1
         metrics = {k: v.detach() for k, v in parts.items()}
         metrics["grad_norm"] = norm
@@ -372,6 +427,8 @@ class Trainer:
     ``stage`` (``train.stage_layer0_steps``), ``freeze``
     (``train.freeze_layer0_step`` on), ``warmup`` (before
     ``loss.consistency_start_step``: the full loss with
+    ``consistency_weight=0``, the anchor kept, and with the EMA teacher
+    the anchor dropped too), ``stop`` (from ``loss.consistency_stop_step``:
     ``consistency_weight=0``, the anchor kept), ``full``. An eval every
     ``train.eval_every`` steps writes ``eval_*`` metrics and an image grid,
     tracks layer-0 drift against the run's best ``eval_abs_rel``, and
@@ -430,11 +487,25 @@ class Trainer:
         self.step_fns = {"full": step()}
         if t.stage_layer0_steps > 0:
             self.step_fns["stage"] = step(stage_layer0=True)
-        if lcfg.consistency_weight > 0 and lcfg.consistency_start_step > 0:
+        if ((lcfg.consistency_weight > 0
+             or (lcfg.consistency_ema_teacher
+                 and lcfg.consistency_anchor_weight > 0))
+                and lcfg.consistency_start_step > 0):
             # Pseudo-labels from a fresh network are noise: before the
-            # start step the term is dropped; the anchor stays on.
-            self.step_fns["warmup"] = step(cfg.replace(
-                loss=dataclasses.replace(lcfg, consistency_weight=0.0)))
+            # start step the term is dropped. The live anchor stays on; a
+            # teacher's anchor is dropped too (an EMA of a half-trained
+            # net makes as poor an anchor as a pseudo-label).
+            warm = dataclasses.replace(lcfg, consistency_weight=0.0)
+            if lcfg.consistency_ema_teacher:
+                warm = dataclasses.replace(warm,
+                                           consistency_anchor_weight=0.0)
+            self.step_fns["warmup"] = step(cfg.replace(loss=warm))
+        stopped = cfg.replace(loss=dataclasses.replace(
+            lcfg, consistency_weight=0.0))
+        if lcfg.consistency_weight > 0 and lcfg.consistency_stop_step > 0:
+            # From the stop step the pseudo-label is dropped (the anchor
+            # kept).
+            self.step_fns["stop"] = step(stopped)
         fz = t.freeze_layer0_step
         if t.freeze_layer0_from_best:
             ev = t.eval_every
@@ -466,7 +537,18 @@ class Trainer:
                     f"train.freeze_layer0_step={fz} must be >= "
                     f"loss.consistency_start_step={lcfg.consistency_start_step}"
                     " (the freeze is the LAST phase)")
-            self.step_fns["freeze"] = step(freeze_layer0=True)
+            freeze_cfg = cfg
+            if "stop" in self.step_fns:
+                if fz < lcfg.consistency_stop_step:
+                    raise ValueError(
+                        f"train.freeze_layer0_step={fz} must be >= "
+                        "loss.consistency_stop_step="
+                        f"{lcfg.consistency_stop_step} (the freeze is the "
+                        "LAST phase)")
+                # The freeze starts at or after the stop: its loss is the
+                # stopped one.
+                freeze_cfg = stopped
+            self.step_fns["freeze"] = step(freeze_cfg, freeze_layer0=True)
         if t.collapse_rollback_threshold > 0:
             if not t.save_best_params:
                 raise ValueError("train.collapse_rollback_threshold requires "
@@ -497,6 +579,8 @@ class Trainer:
             return "freeze"
         if "warmup" in self.step_fns and step < lcfg.consistency_start_step:
             return "warmup"
+        if "stop" in self.step_fns and step >= lcfg.consistency_stop_step:
+            return "stop"
         return "full"
 
     def run_step(self, phase: str, state: TrainState, batch: Batch):
@@ -664,12 +748,15 @@ class Trainer:
         """After an eval, on every rank: rank 0's rollback decision
         (``rolled``); where it rolled back, every rank takes rank 0's
         restored parameters and a fresh optimizer state (zero moments and
-        count, so the learning-rate schedule replays its warmup)."""
+        count, so the learning-rate schedule replays its warmup), and an
+        EMA teacher, where there is one, restarts from those parameters."""
         rolled = broadcast_flag(self.plan, rolled)
         if rolled:
             broadcast_params(self.plan, state.net)
             state.opt_state = Optimizer(self.config).init(
                 {k: p.detach() for k, p in state.net.named_parameters()})
+            if state.ema_params is not None:
+                state.ema_params = ema_copy(state)
         return rolled
 
     def _write_rollback_count(self) -> None:

@@ -155,18 +155,19 @@ def recording():
 
     class RecordSplat:
         @staticmethod
-        def apply(values, coords, weights, out_hw):
-            accum, wsum = splat_fn.apply(values, coords, weights, out_hw)
+        def apply(values, coords, weights, out_hw, *route):
+            accum, wsum = splat_fn.apply(values, coords, weights, out_hw,
+                                         *route)
             calls.append(("splat", coords.detach().cpu(), tuple(out_hw),
                           wsum.detach().cpu()))
             return accum, wsum
 
     class RecordGather:
         @staticmethod
-        def apply(image, coords):
+        def apply(image, coords, *route):
             calls.append(("gather", coords.detach().cpu(),
                           tuple(image.shape[1:3]), None))
-            return gather_fn.apply(image, coords)
+            return gather_fn.apply(image, coords, *route)
 
     ldi_mod.SplatFn, ldi_mod.GatherFn = RecordSplat, RecordGather
     try:

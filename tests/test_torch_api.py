@@ -133,17 +133,30 @@ def test_golden_fixture_on_cpu():
                                          ("use_pallas", "off"),
                                          ("splat_method", "sort")])
 def test_render_rejects_tpu_only_config(field, value):
-    """``splat_method="sort"`` stays a TPU-only choice and raises;
-    ``use_pallas`` "off" renders as "auto" (exact) and "on" takes the
-    windowed route of ``render_forward``."""
+    """Every RenderConfig value the JAX package renders with: the
+    deterministic ``splat_method="sort"`` renders JAX's sort render (its
+    exact lax path, the same sums in the same order, so within float32
+    rounding of the projection) and is bitwise repeatable; ``use_pallas``
+    "off" renders as "auto" (exact) and "on" takes the windowed route of
+    ``render_forward``."""
     tm = tapi.LSIModel.init(0, toy_config(tconfig), H, W, device="cpu")
     ldi = tm.predict_ldi(torch.rand(1, H, W, 3,
                                     generator=torch.Generator().manual_seed(0)))
     pose = torch.from_numpy(np.array(jtf.translation_pose([[-0.2, 0.1, 0]])))
     cfg = dataclasses.replace(tconfig.RenderConfig(), **{field: value})
     if field == "splat_method":
+        from lsi_tpu.geometry.ldi import LDI as JLDI
+        got = tapi.render(ldi, pose, config=cfg)
+        assert torch.equal(got, tapi.render(ldi, pose, config=cfg))
+        want = japi.render(
+            JLDI(*(jnp.asarray(t.numpy()) for t in (
+                ldi.textures, ldi.disparities, ldi.intrinsics))),
+            jnp.asarray(pose.numpy()), config=jconfig.RenderConfig(
+                splat_method="sort"))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
         with pytest.raises(ValueError):
-            tapi.render(ldi, pose, config=cfg)
+            tapi.render(ldi, pose, config=dataclasses.replace(
+                cfg, splat_method="segment"))
         return
     got = tapi.render(ldi, pose, config=cfg)
     want = render_forward(ldi, pose, zbuffer_scale=cfg.zbuffer_scale,

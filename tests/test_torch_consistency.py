@@ -273,13 +273,65 @@ def test_total_loss_bidirectional_matches_jax(rng, name):
 @pytest.mark.parametrize("knob,value", [("consistency_ema_teacher", True),
                                         ("consistency_stop_step", 10)])
 def test_refuted_consistency_knobs_raise(rng, knob, value):
+    """The two knobs JAX's two-prediction loss takes, against JAX: with the
+    EMA teacher (``consistency_ema_teacher``) the pseudo-label's and the
+    anchor's targets are the teacher's predictions, constants (given here
+    as a third and fourth LDI; their layer 0 is read, the students'
+    layer 0 is not, so the targets' gradient is exactly 0); the stop step
+    is the Trainer's switch and leaves the loss as it is. Values and
+    gradients at ``check``'s tolerances (tests/test_torch_refuted.py holds
+    the trainer's side)."""
     case = scene(rng)
-    src, trg, _ = both_ldis(case)
-    cfg = LossConfig(**quality_loss(**{knob: value}))
-    with pytest.raises(NotImplementedError):
-        tlosses.total_loss_bidirectional(
-            src, trg, *map(torch.from_numpy, case[3:5]),
-            torch.from_numpy(case[2]), cfg, RenderConfig(**RENDER))
+    kw = quality_loss(**{knob: value})
+    jcfg, tcfg = JLossConfig(**kw), LossConfig(**kw)
+    teachers = scene(rng)[0] if knob == "consistency_ema_teacher" else None
+    K = case[1]
+
+    def jkw():
+        if teachers is None:
+            return {}
+        k = jnp.asarray(K)
+        return dict(ldi_src_teacher=JLDI(*map(jnp.asarray, teachers[:2]), k),
+                    ldi_trg_teacher=JLDI(*map(jnp.asarray, teachers[2:]), k))
+
+    def tkw():
+        if teachers is None:
+            return {}
+        k = torch.from_numpy(K)
+        return dict(
+            ldi_src_teacher=LDI(*map(torch.from_numpy, teachers[:2]), k),
+            ldi_trg_teacher=LDI(*map(torch.from_numpy, teachers[2:]), k))
+
+    parts = {}
+
+    def jfn(s, t, pose, src, trg, gt, gv):
+        out = jlosses.total_loss_bidirectional(
+            s, t, src, trg, pose, jcfg, JRenderConfig(**RENDER),
+            gt_disparity=gt, gt_valid=gv, **jkw())
+        return out["total"], out
+
+    def tfn(s, t, pose, src, trg, gt, gv):
+        out = tlosses.total_loss_bidirectional(
+            s, t, src, trg, pose, tcfg, RenderConfig(**RENDER),
+            gt_disparity=gt, gt_valid=gv, **tkw())
+        parts.update({k: float(v.detach()) for k, v in out.items()})
+        return out["total"]
+
+    _, want = check(case, jfn, tfn, has_aux=True)
+    assert sorted(parts) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(parts[k], float(v), rtol=1e-5, atol=1e-8,
+                                   err_msg=k)
+    if teachers is not None:
+        # The targets came from the teacher: the live second prediction
+        # gives other terms.
+        live = tlosses.total_loss_bidirectional(
+            *both_ldis(case)[:2], *map(torch.from_numpy, case[3:5]),
+            torch.from_numpy(case[2]), tcfg, RenderConfig(**RENDER),
+            gt_disparity=torch.from_numpy(case[5]),
+            gt_valid=torch.from_numpy(case[6]))
+        assert abs(float(live["depth_consistency"])
+                   - parts["depth_consistency"]) > 1e-4
 
 
 # ------------------------------------------------ the two-prediction step

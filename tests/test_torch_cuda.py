@@ -7,7 +7,10 @@ each kind (single and two predictions), the MPI baseline's plane warp
 step and the candidate gathers, and the windowed modes of K1 (the box
 kernel's window and the band kernel) and the splat VJP (the
 height-sharded render's splat) against the plain windowed splat; K1
-without weights (the gather's image gradient).
+without weights (the gather's image gradient); the deterministic splat
+K1-D (``render.splat_method="sort"``) against the plain sort splat on the
+card and, bitwise, on the CPU, repeated and on a second stream, with its
+launch count, its int32 limit and the sort render.
 
 Every test needs a CUDA card (marker ``gpu``) and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed; there,
@@ -34,7 +37,7 @@ from lsi_tpu_torch.losses.losses import (depth_consistency,
                                          view_synthesis_inverse_warp)
 from lsi_tpu_torch.models.mpi import MPI, plane_depths, render_mpi
 from lsi_tpu_torch.geometry.transforms import pose_from_euler
-from lsi_tpu_torch.kernels import gather_cuda, splat_cuda
+from lsi_tpu_torch.kernels import build, gather_cuda, splat_cuda
 from lsi_tpu_torch.ops.gather import bilinear_sample
 from lsi_tpu_torch.ops.splat import splat_bilinear
 from lsi_tpu_torch.train.trainer import create_state, make_train_step
@@ -1087,3 +1090,152 @@ def test_route_on_cuda_matches_cpu(cuda):
     for k, v in metrics["cpu"].items():
         np.testing.assert_allclose(float(metrics[str(cuda)][k]), float(v),
                                    rtol=1e-3, atol=1e-6, err_msg=k)
+
+
+# ------------------------------------------ the deterministic splat (K1-D)
+
+def sort_plain(values, coords, weights, out_hw, snap, window, device):
+    """The plain sort splat on ``device``: on the CPU its sums run in the
+    sorted order, K1-D's order."""
+    args = [None if t is None else t.to(device)
+            for t in (values, coords, weights)]
+    base = None
+    if window[0] >= 0:
+        base = (torch.arange(values.shape[1], device=device) % window[1]
+                + window[2])
+    return splat_bilinear(*args, out_hw, snap=snap,
+                          max_dy_window=None if base is None else window[0],
+                          base_rows=base, method="sort")
+
+
+def sort_case(seed, c, kind, window):
+    """K1-D's inputs: SIZES' ragged shape unwindowed, or
+    :func:`window_inputs` (base offsets, integer rows, +-1e6, inf, nan)."""
+    if window[0] < 0:
+        *arrays, out_hw = splat_case(seed, c, "ragged", kind)
+    else:
+        max_dy, fold_h, bo = window
+        *arrays, out_hw = window_inputs(seed, 2, 2, fold_h, 77, c, max_dy,
+                                        bo, "huge" if kind == "nonfinite"
+                                        else "random")
+    return arrays, out_hw
+
+
+SORT_WINDOWS = [(-1, 1, 0), (0, 13, 0), (2, 13, 3)]
+
+
+@pytest.mark.parametrize("window", SORT_WINDOWS)
+@pytest.mark.parametrize("kind", ["random40", "nonfinite"])
+@pytest.mark.parametrize("snap", [True, False])
+@pytest.mark.parametrize("c", range(1, 9))
+def test_sort_kernel_matches_plain(cuda, c, snap, kind, window):
+    """K1-D, with and without weights, against the plain sort splat on the
+    card (1e-5, its index_add_ sums in another order) and on the CPU,
+    whose sums run in K1-D's order: bitwise, but where a sum is denormal
+    (K1-D flushes it, H12); and against K1, the same function."""
+    arrays, out_hw = sort_case(200 + c, c, kind, window)
+    values, coords, weights = (torch.from_numpy(a).to(cuda) for a in arrays)
+    kw = dict(snap=snap, max_dy=window[0], fold_h=window[1],
+              base_offset=window[2])
+    for w in (weights, None):
+        got = splat_cuda.splat(values, coords, w, out_hw, deterministic=True,
+                               **kw)
+        torch.cuda.synchronize()
+        assert (got[1] is None) == (w is None)
+        got = [g for g in got if g is not None]
+        on_card = sort_plain(values, coords, w, out_hw, snap, window, cuda)
+        assert_splat_close(got, [r for r in on_card if r is not None])
+        k1 = splat_cuda.splat(values, coords, w, out_hw, **kw)
+        assert_splat_close(got, [r for r in k1 if r is not None])
+        on_cpu = sort_plain(values, coords, w, out_hw, snap, window, "cpu")
+        for g, r in zip(got, on_cpu):
+            r = r.to(cuda)
+            tiny = (r != 0) & (r.abs() < torch.finfo(torch.float32).tiny)
+            assert torch.equal(g[~tiny], r[~tiny])
+            assert not g[tiny].abs().any()
+
+
+def test_sort_kernel_is_bitwise_repeatable_across_streams(cuda):
+    """Launches on the default stream and on a second stream: bitwise
+    equal (K1's atomics are not: H8)."""
+    arrays, out_hw = sort_case(210, 4, "random40", (-1, 1, 0))
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    first = splat_cuda.splat(*args, out_hw, deterministic=True)
+    again = [splat_cuda.splat(*args, out_hw, deterministic=True)
+             for _ in range(3)]
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        other = splat_cuda.splat(*args, out_hw, deterministic=True)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    for out in again + [other]:
+        assert all(torch.equal(a, b) for a, b in zip(first, out))
+
+
+def test_sort_kernel_writes_every_pixel(cuda):
+    """accum and wsum come from torch.empty: K1-D writes every pixel, the
+    uncovered ones 0, and nothing a freed NaN block held survives."""
+    arrays, out_hw = sort_case(211, 4, "random40", (2, 13, 3))
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    n, _, _, c = args[0].shape
+    for _ in range(4):  # the caching allocator hands these blocks out next
+        torch.full((n, *out_hw, c), float("nan"), device=cuda)
+        torch.full((n, *out_hw, 1), float("nan"), device=cuda)
+    got = splat_cuda.splat(*args, out_hw, max_dy=2, fold_h=13,
+                           base_offset=3, deterministic=True)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert bool((got[1] == 0).any()) and float(got[1].abs().max()) > 0
+
+
+def test_sort_kernel_counts_launches_and_refuses_int32_overflow(cuda):
+    """One K1-D launch counts in splat.sort_launches alone (not in K1's
+    counters), SplatFn's deterministic backward is one lsi_splat_vjp; a
+    splat whose keys would not fit int32 raises ValueError before any
+    launch, and the C entry points refuse such sizes themselves."""
+    arrays, out_hw = sort_case(212, 3, "random40", (-1, 1, 0))
+    ins = [torch.from_numpy(a).to(cuda).requires_grad_() for a in arrays]
+    counters = ("launches", "window_launches", "band_launches",
+                "sort_launches")
+    before = [getattr(splat_cuda.splat, k) for k in counters]
+    vjp_before = splat_cuda.splat_vjp.launches
+    out = splat_cuda.SplatFn.apply(*ins, out_hw, -1, None, 0, True)
+    torch.autograd.grad(out, ins, cotangents_like(13, *out))
+    torch.cuda.synchronize()
+    assert [getattr(splat_cuda.splat, k) - b
+            for k, b in zip(counters, before)] == [0, 0, 0, 1]
+    assert splat_cuda.splat_vjp.launches - vjp_before == 1
+    with pytest.raises(ValueError):
+        splat_cuda.check_sort_sizes((384, 1024, 1536, 4), (512, 1536))
+    keys = torch.empty(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="lsi_splat_sort_keys"):
+        build.launch("splat_sort", "lsi_splat_sort_keys", cuda,
+                     keys.data_ptr(), keys.data_ptr(), 384, 1024, 1536,
+                     512, 1536, 1, -1, 1, 0)
+    assert splat_cuda.splat.sort_launches - before[3] == 1
+
+
+def test_render_sort_on_cuda_matches_cpu(cuda):
+    """render_forward with splat_method="sort" on the card: every render
+    one K1-D launch and no K1, the CPU's render within 1e-5, two renders
+    bitwise equal."""
+    rng = np.random.default_rng(7)
+    tex = torch.from_numpy(rng.uniform(size=(2, 2, 32, 64, 3)).astype(
+        np.float32))
+    disp = torch.from_numpy(rng.uniform(0.05, 0.5, (2, 2, 32, 64, 1))
+                            .astype(np.float32))
+    K = torch.tensor([[[40.0, 0, 31.5], [0, 40.0, 15.5], [0, 0, 1]]] * 2)
+    pose = pose_from_euler([[0.0, 0.02, 0.0]] * 2, [[-0.2, 0.05, 0.0]] * 2)
+    ref = render_forward(LDI(tex, disp, K), pose, splat_method="sort")
+    ldi = LDI(tex.to(cuda), disp.to(cuda), K.to(cuda))
+    before = (splat_cuda.splat.launches, splat_cuda.splat.sort_launches)
+    got = [render_forward(ldi, pose.to(cuda), splat_method="sort")
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (splat_cuda.splat.launches - before[0],
+            splat_cuda.splat.sort_launches - before[1]) == (0, 2)
+    for k in ("rgb", "disparity", "coverage"):
+        assert torch.equal(got[0][k], got[1][k])
+        torch.testing.assert_close(got[0][k].cpu(), ref[k], rtol=1e-5,
+                                   atol=1e-5)

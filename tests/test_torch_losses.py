@@ -176,9 +176,28 @@ def test_total_loss_matches_jax(rng, photo_mode):
 
 @pytest.mark.parametrize("field,value", [("photo_layer0_weight", 0.1)])
 def test_unported_loss_options_raise(rng, field, value):
-    tex, disp, K, pose, target, _, _ = ldi_case(rng)
-    ldi = LDI(*map(torch.from_numpy, (tex, disp, K)))
-    cfg = dataclasses.replace(LossConfig(), **{field: value})
-    with pytest.raises(NotImplementedError):
-        tlosses.total_loss(ldi, torch.from_numpy(target),
-                           torch.from_numpy(pose), cfg, RenderConfig())
+    """``photo_layer0_weight``: the layer-0-only inverse warp
+    (``photo_layer0``, after ``photo_splat`` and before ``smoothness``, as
+    JAX sums the parts) against JAX's total_loss, values and gradients."""
+    kw = dict(photo_mode="both", **{field: value})
+    jcfg, tcfg = JLossConfig(**kw), LossConfig(**kw)
+    parts = {}
+
+    def jfn(ldi, pose, trg, gt, gv):
+        out = jlosses.total_loss(ldi, trg, pose, jcfg, JRenderConfig(),
+                                 gt_disparity=gt, gt_valid=gv)
+        return out["total"], out
+
+    def tfn(ldi, pose, trg, gt, gv):
+        out = tlosses.total_loss(ldi, trg, pose, tcfg, RenderConfig(),
+                                 gt_disparity=gt, gt_valid=gv)
+        parts.update({k: float(v.detach()) for k, v in out.items()})
+        return out["total"]
+
+    want = check(ldi_case(rng), jfn, tfn, has_aux=True)
+    assert sorted(parts) == sorted(want)
+    assert list(parts)[:4] == ["photo_inverse_warp", "photo_splat",
+                               "photo_layer0", "smoothness"]
+    for k, v in want.items():
+        np.testing.assert_allclose(parts[k], float(v), rtol=1e-5,
+                                   atol=1e-8, err_msg=k)

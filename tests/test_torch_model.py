@@ -142,12 +142,36 @@ def test_converter_rejects_mismatched_weights(fault):
         convert.state_dict_from_jax(flat, cfg)
 
 
-def test_unported_model_options_raise():
-    """The refuted ``deep_heads_stopgrad_trunk`` raises; an MPI config is
-    the other family's (``models.build_model`` dispatches; see
+def test_unported_model_options_raise(rng):
+    """``deep_heads_stopgrad_trunk`` builds JAX's isolated heads
+    (``deep_trunk``, ``disp_head_deep``, ``tex_head_deep``; ``disp_head``
+    and ``tex_head`` layer 0's alone), converts both ways, and predicts
+    JAX's LDI from the same weights (float32); an MPI config is the other
+    family's (``models.build_model`` dispatches; see
     tests/test_torch_mpi.py), so the LDI predictor rejects it."""
-    with pytest.raises(NotImplementedError):
-        LDIPredictor(ModelConfig(deep_heads_stopgrad_trunk=True))
+    cfg = ModelConfig(num_layers=3, base_filters=8, num_scales=2,
+                      compute_dtype="float32",
+                      layer0_texture_from_input=False,
+                      deep_heads_stopgrad_trunk=True)
+    jnet, params = jax_model(cfg)
+    flat = flat_params(params)
+    assert {"deep_trunk/kernel", "disp_head_deep/kernel",
+            "tex_head_deep/kernel"} <= set(flat)
+    assert flat["disp_head/kernel"].shape[-1] == 1
+    assert flat["tex_head/kernel"].shape[-1] == 3
+    for k, v in convert.jax_from_state_dict(
+            convert.state_dict_from_jax(flat, cfg)).items():
+        np.testing.assert_array_equal(v, flat[k], err_msg=k)
+    img = image_batch(rng)
+    K = np.array(j_default_intrinsics(2, H, W))
+    ref = jnet.apply({"params": params}, jnp.asarray(img), jnp.asarray(K))
+    with torch.no_grad():
+        got = torch_model(cfg, params)(torch.from_numpy(img),
+                                       torch.from_numpy(K))
+    for name in ("textures", "disparities"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=0, atol=TOL["float32"], err_msg=name)
     with pytest.raises(ValueError):
         LDIPredictor(ModelConfig(family="mpi"))
 

@@ -1,6 +1,7 @@
 """The port's height-sharded render (``lsi_tpu_torch/parallel/spatial.py``)
 over gloo ranks on the CPU against JAX: ``tests/test_spatial.py``'s cases
-at its tolerances (pure translation, vertical motion, motion beyond the
+at its tolerances (pure translation, vertical motion, also with the
+sort splat (``render.splat_method="sort"``), motion beyond the
 window, the LDI gradient, a 2x2 data x space grid, the thin-shard
 ValueError), at S = 2 and 4.
 
@@ -46,12 +47,19 @@ TOL = dict(rtol=1e-5, atol=1e-5)          # tests/test_spatial.py
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 ZSCALE = 30.0
 
-# name: (pose translation, max_dy) -- test_spatial.py's motions.
+# name: (pose translation, max_dy) -- test_spatial.py's motions; the
+# "_sort" case splats with render.splat_method="sort" (METHODS).
 CASES = {
     "pure_translation": ([-0.3, 0.0, 0.0], 1),
     "vertical_motion": ([-0.2, 0.02, 0.0], 2),
     "beyond_window": ([-0.1, 0.15, 0.0], 2),
+    "vertical_motion_sort": ([-0.2, 0.02, 0.0], 2),
 }
+METHODS = {"vertical_motion_sort": "sort"}
+
+
+def method_of(case):
+    return METHODS.get(case, "scatter")
 
 
 def make_ldi(rng, b=1, l=2, h=32, w=128):
@@ -76,7 +84,7 @@ def pose_of(t, b):
                                                (b, 1))))
 
 
-def jax_windowed_render(ldi, pose, max_dy):
+def jax_windowed_render(ldi, pose, max_dy, method="scatter"):
     """JAX's single-device windowed render, assembled as
     tests/test_spatial.py::test_spatial_window_matches_windowed_global
     assembles it: the render ``render_forward_spatial`` is held to."""
@@ -95,12 +103,12 @@ def jax_windowed_render(ldi, pose, max_dy):
     payload = jnp.concatenate(
         [ldi.textures.astype(jnp.float32).reshape(b, l * h, w, 3), td], -1)
     accum, wsum = splat_bilinear(payload, tc, weights, (h, w),
-                                 max_dy_window=max_dy)
+                                 method=method, max_dy_window=max_dy)
     out = divide_safe(accum, wsum, eps=0.0)
     return {"rgb": out[..., :3], "disparity": out[..., 3:], "coverage": wsum}
 
 
-def jax_case(arrays, pose, max_dy, target):
+def jax_case(arrays, pose, max_dy, target, method="scatter"):
     """JAX's windowed render, and its loss and LDI gradient (eager)."""
     ldi = j_ldi(arrays)
     pose = jnp.asarray(pose)
@@ -108,11 +116,11 @@ def jax_case(arrays, pose, max_dy, target):
     def loss(disp):
         l2 = JLDI(textures=ldi.textures, disparities=disp,
                   intrinsics=ldi.intrinsics)
-        return jnp.mean((jax_windowed_render(l2, pose, max_dy)["rgb"]
+        return jnp.mean((jax_windowed_render(l2, pose, max_dy, method)["rgb"]
                          - target) ** 2)
 
     res = {k: np.asarray(v) for k, v in
-           jax_windowed_render(ldi, pose, max_dy).items()}
+           jax_windowed_render(ldi, pose, max_dy, method).items()}
     value, grad = jax.value_and_grad(loss)(ldi.disparities)
     res.update(loss=float(value), grad=np.asarray(grad))
     return res
@@ -153,10 +161,11 @@ def grids(tmp_path_factory):
         for name in cases:
             t, max_dy = CASES[name]
             pose = pose_of(t, b)
-            jax_res[(data, space), name] = (jax_case(arrays, pose, max_dy,
-                                                     target), arrays)
+            jax_res[(data, space), name] = (jax_case(
+                arrays, pose, max_dy, target, method_of(name)), arrays)
             args.append((launch.spatial_render,
-                         (arrays, pose, ZSCALE, max_dy, target)))
+                         (arrays, pose, ZSCALE, max_dy, target,
+                          method_of(name))))
         spawns[(data, space)] = (cases, args)
     with concurrent.futures.ThreadPoolExecutor(len(GRIDS)) as pool:
         ranks = {grid: pool.submit(
@@ -230,7 +239,7 @@ def test_windowed_render_matches_the_spatial_render(grids, case):
                 for k in ("textures", "disparities", "intrinsics")))
     out = render_forward(ldi, torch.tensor(pose_of(t, 1)),
                          zbuffer_scale=ZSCALE, use_pallas="on",
-                         pallas_max_dy=max_dy)
+                         pallas_max_dy=max_dy, splat_method=method_of(case))
     for key in ("rgb", "disparity", "coverage"):
         np.testing.assert_allclose(out[key].numpy(),
                                    assemble(ranks, key, 1, 32), **TOL)
@@ -250,9 +259,11 @@ def test_windowed_render_matches_jax(case):
     ldi = LDI(*(torch.from_numpy(arrays[k])
                 for k in ("textures", "disparities", "intrinsics")))
     out = render_forward(ldi, torch.from_numpy(pose), zbuffer_scale=ZSCALE,
-                         use_pallas="on", pallas_max_dy=max_dy)
+                         use_pallas="on", pallas_max_dy=max_dy,
+                         splat_method=method_of(case))
     jldi = j_ldi(arrays)
-    want = jax_windowed_render(jldi, jnp.asarray(pose), max_dy)
+    want = jax_windowed_render(jldi, jnp.asarray(pose), max_dy,
+                               method_of(case))
     for key in ("rgb", "disparity", "coverage"):
         np.testing.assert_allclose(out[key].numpy(), np.asarray(want[key]),
                                    **TOL)

@@ -340,33 +340,58 @@ def test_create_state_defaults_to_cuda():
         ttrainer.create_state(toy_config(get_config))
 
 
-# The options the port refuses (the refuted knobs), and the two it refused
-# until it ported them (the collapse rollback and remat_decoder), which
-# the step now takes (None).
+# The options the port once refused, each of which the step now takes:
+# the refuted knobs (the EMA teacher, the stop step, photo_layer0_weight),
+# the collapse rollback and remat_decoder.
 UNPORTED = {
-    "ema_teacher": ("loss", {"consistency_ema_teacher": True},
-                    NotImplementedError),
-    "consistency_stop_step": ("loss", {"consistency_stop_step": 10},
-                              NotImplementedError),
-    "collapse_rollback": ("train", {"collapse_rollback_threshold": 0.1},
-                          None),
-    "photo_layer0_weight": ("loss", {"photo_layer0_weight": 0.1},
-                            NotImplementedError),
-    "remat_decoder": ("train", {"remat_decoder": True}, None),
+    "ema_teacher": ("loss", {"consistency_ema_teacher": True}),
+    "consistency_stop_step": ("loss", {"consistency_stop_step": 10}),
+    "collapse_rollback": ("train", {"collapse_rollback_threshold": 0.1}),
+    "photo_layer0_weight": ("loss", {"photo_layer0_weight": 0.1}),
+    "remat_decoder": ("train", {"remat_decoder": True}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_unported_train_options_raise(case):
-    section, change, error = UNPORTED[case]
+def test_unported_train_options_raise(golden, case):
+    """The toy kitti_ldi3_b16 step with each option builds and takes the
+    golden fixture's first step (lr 0, the params JAX's) with JAX's loss
+    parts and gradient norm: on this single-prediction step the teacher
+    and the stop step change nothing (as in JAX, the teacher serves the
+    two-prediction terms); ``photo_layer0`` adds JAX's layer-0-only
+    inverse warp (tests/test_torch_refuted.py holds each knob's own
+    step)."""
+    section, change = UNPORTED[case]
     cfg = toy_config(get_config)
     cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
         getattr(cfg, section), **change)})
-    if error is None:
-        ttrainer.make_train_step(cfg)
-        return
-    with pytest.raises(error):
-        ttrainer.make_train_step(cfg)
+    step = ttrainer.make_train_step(cfg)
+    state = ttrainer.create_state(cfg, device="cpu")
+    state.net.load_state_dict(golden_start(golden, cfg))
+    state, metrics = step(state, torch_batch(golden_batches(golden)[0]))
+    want = {k[len("metrics/"):]: v[0] for k, v in golden.items()
+            if k.startswith("metrics/")}
+    if case == "photo_layer0_weight":
+        # JAX's part, from the port's LDI of the same params and batch.
+        from lsi_tpu.geometry.ldi import LDI as JLDI
+        from lsi_tpu.losses.losses import view_synthesis_inverse_warp
+        batch = tpipe.decode_batch(torch_batch(golden_batches(golden)[0]))
+        with torch.no_grad():
+            ldi = state.net(batch.src_image, batch.intrinsics)
+        layer0 = JLDI(*(jnp.asarray(x[:, :1].numpy()) for x in (
+            ldi.textures, ldi.disparities)), jnp.asarray(
+                ldi.intrinsics.numpy()))
+        part = 0.1 * view_synthesis_inverse_warp(
+            layer0, jnp.asarray(batch.trg_image.numpy()),
+            jnp.asarray(batch.pose_src2trg.numpy()), min_over_layers=False)
+        np.testing.assert_allclose(float(metrics.pop("photo_layer0")),
+                                   float(part), rtol=LOSS_RTOL_SAME_PARAMS)
+        for k in ("total", "grad_norm"):
+            del want[k]
+    both = {"total", "grad_norm"}
+    assert sorted(set(metrics) - both) == sorted(set(want) - both)
+    check_metrics({k: v for k, v in metrics.items() if k in want}, want, 0)
+    assert state.step == 1
 
 
 # ------------------------------------------------------------------ data
