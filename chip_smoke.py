@@ -18,8 +18,9 @@ and no result line:
 2. build   — build every kernel library from lsi_tpu_torch/csrc, one nvcc
              per source, all started together: splat_fwd (K1: the box
              kernel lsi_splat_fwd, and the band kernel lsi_splat_band, its
-             windowed mode), splat_sort (K1-D: lsi_splat_sort_keys,
-             lsi_splat_sort_sum) and splat_bwd (lsi_splat_vjp,
+             windowed mode), splat_sort (K1-D: lsi_splat_sort, its
+             count, scan, fill, sum and long-run kernels) and splat_bwd
+             (lsi_splat_vjp,
              lsi_gather_fwd, lsi_gather_bwd_coords).
 3. kernel  — K1 against the plain index_add_ splat on the card, at the
              render's shape (N=8, Hs=512, Ws=768, C=4), with out-of-image
@@ -223,8 +224,10 @@ measure no multi-GPU scaling.
              kitti_ldi3_quality step's full LDI's and a height shard's
              own inputs (window 2), three launches bitwise equal, held to
              the plain sort splat and to K1, timed by CUDA events and
-             alone by torch.profiler beside K1's bound and a deterministic
-             index_put_; (b) kitti_ldi2 b8 serving with "sort", two passes
+             alone by torch.profiler, kernel by kernel (a call runs
+             splat_sort.cu's kernels and memsets, nothing else), beside
+             K1's bound and a deterministic index_put_, with its longest
+             run and the share of targets on the long-run path; (b) kitti_ldi2 b8 serving with "sort", two passes
              bitwise equal, every render one K1-D launch; (c) the first
              quality step's loss parts against "scatter"'s on one batch,
              and kitti_ldi3_quality through the training CLI from phase
@@ -252,7 +255,7 @@ own full-width inputs, ``splat_band``, the band kernel, on the route MPI
 step's own, K4-W's two kernels on the route step's gather) also carry
 ``device_ms``, the kernel alone by torch.profiler (null where its trace
 missed launches twice); ``splat_sort``'s is every kernel of the call
-(keys, sort, sum), and its ``library_ms`` index_put_ (accumulate, under
+(count, scan, fill, sum, long runs, the memset), and its ``library_ms`` index_put_ (accumulate, under
 torch.use_deterministic_algorithms).
 """
 
@@ -3637,11 +3640,17 @@ def route_phase(dev, smi: str, workdir: Path, shards: Path):
 
 # ------------------------------------------------ phase 30: sort splat
 
+#: K1-D's kernels by kind (their names in splat_sort.cu) and the memset of
+#: its counts; any other kernel in a call fails hold_sort.
+SORT_KINDS = (("splat_sort_count", "count"), ("splat_sort_scan", "scan"),
+              ("splat_sort_fill", "fill"), ("splat_sort_sum", "sum"),
+              ("splat_sort_long", "long"), ("Memset", "memset"))
+
+
 def call_device_us(fn, iters: int = 10):
     """Mean device time in us per call of ``fn`` of every CUDA kernel,
-    copy and fill it launches (torch.profiler, after warm-up), and that
-    time by kind: K1-D's keys and sum kernels, the radix sort's kernels,
-    and the rest (the sort's copies and fills)."""
+    copy and memset it launches (torch.profiler, after warm-up), that time
+    by kind (SORT_KINDS), and the names of any other kernels."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -3650,15 +3659,39 @@ def call_device_us(fn, iters: int = 10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kinds = (("splat_sort_keys", "keys"), ("splat_sort_sum", "sum"),
-             ("RadixSort", "sort"))
-    by_name = {}
+    by_name, others = {}, set()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = next((k for pat, k in kinds if pat in e.name), "other")
+            name = next((k for pat, k in SORT_KINDS if pat in e.name), None)
+            if name is None:
+                others.add(e.name)
+                name = "other"
             by_name[name] = (by_name.get(name, 0.0)
                              + e.time_range.elapsed_us() / iters)
-    return sum(by_name.values()), by_name
+    return sum(by_name.values()), by_name, sorted(others)
+
+
+def sort_runs(coords, out_hw, snap, window) -> dict:
+    """The runs K1-D sorts on these inputs, counted with PyTorch: a
+    target's run is its live corners (in the image, in the window, a
+    fraction above 0). The longest, the mean over covered targets, and
+    the share of targets (and of covered ones) whose run is longer than
+    SORT_SHORT_RUN, the ones the long-run kernel takes."""
+    base = None if window[0] < 0 else splat_cuda.window_base_rows(
+        coords.shape[1], out_hw[0], *window).to(coords.device)
+    ones = torch.ones(coords.shape[:-1] + (1,), device=coords.device)
+    idx, frac = corner_contributions(ones, coords, None, out_hw, snap,
+                                     None if base is None else window[0],
+                                     base)
+    targets = coords.shape[0] * out_hw[0] * out_hw[1]
+    live = (idx < targets) & (frac[:, 0] > 0)
+    runs = torch.bincount(idx[live], minlength=targets)
+    covered = int((runs > 0).sum())
+    longs = int((runs > splat_cuda.SORT_SHORT_RUN).sum())
+    return dict(longest=int(runs.max()), live=int(live.sum()),
+                mean=float(live.sum()) / max(covered, 1),
+                long_share=longs / targets,
+                long_share_covered=longs / max(covered, 1))
 
 
 def sort_library_ms(values, coords, weights, out_hw, snap, window) -> float:
@@ -3688,8 +3721,9 @@ def hold_sort(label: str, smi: str, values, coords, weights, out_hw, snap,
     """K1-D on one input set: three launches bitwise equal, held to the
     plain sort splat and to K1 (the same function) at phase 3's
     tolerances, timed in turns with the plain version by CUDA events,
-    alone by torch.profiler (every kernel of the call: keys, sort, sum),
-    beside K1's bound and index_put_."""
+    alone by torch.profiler (every kernel of the call, which must be
+    splat_sort.cu's or a memset), beside K1's bound and index_put_, with
+    the runs it sorts (:func:`sort_runs`)."""
     kw = dict(snap=snap, max_dy=window[0], fold_h=window[1],
               base_offset=window[2])
     base = None if window[0] < 0 else splat_cuda.window_base_rows(
@@ -3716,7 +3750,11 @@ def hold_sort(label: str, smi: str, values, coords, weights, out_hw, snap,
                                         **kw)))
     del runs
     t, readings = in_turns({"plain": plain, "kernel": kernel}, iters=10)
-    dev_us, parts = call_device_us(kernel)
+    dev_us, parts, others = call_device_us(kernel)
+    if others or not {"count", "scan", "fill", "sum"} <= set(parts):
+        fail(f"K1-D {label}: a call ran {sorted(parts)} and other kernels "
+             f"{others}; want splat_sort.cu's kernels and memsets alone")
+    runs = sort_runs(coords, out_hw, snap, window)
     bnd = k1_bound(values, coords, weights, out_hw, window)
     lib = sort_library_ms(values, coords, weights, out_hw, snap, window)
     log("timing", f"{smi} | K1-D {label} ({tuple(values.shape)} -> "
@@ -3725,10 +3763,15 @@ def hold_sort(label: str, smi: str, values, coords, weights, out_hw, snap,
         f"{1e3 * t['plain']:.1f} us/call {readings['plain']}; index_put_ "
         f"(deterministic, accumulate) {1e3 * lib:.1f} us; bound "
         f"{1e3 * bnd[0]:.1f} us ({bnd[1]}), {100 * bnd[0] / t['kernel']:.0f}%"
-        f" of it by events; alone (profiler, every kernel of the call) "
-        f"{dev_us:.1f} us: " + ", ".join(f"{k} {v:.1f}" for k, v in
-                                         parts.items())
-        + f"; three launches bitwise equal; max abs err {err:.3e}")
+        f" of it by events; alone (profiler, every kernel of the call, "
+        f"splat_sort.cu's and memsets only) {dev_us:.1f} us: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"; runs: {runs['live']} live corners, longest {runs['longest']},"
+        f" mean {runs['mean']:.2f} a covered target, "
+        f"{100 * runs['long_share']:.3f}% of targets "
+        f"({100 * runs['long_share_covered']:.3f}% of covered) longer than "
+        f"{splat_cuda.SORT_SHORT_RUN} (the long-run kernel's)"
+        f"; three launches bitwise equal; max abs err {err:.3e}")
     return dict(t=t, bound=bnd, err=err, library=lib, device_ms=dev_us / 1e3)
 
 

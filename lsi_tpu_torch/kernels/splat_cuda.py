@@ -11,10 +11,12 @@ The kernels are hand-written for sm_90a and bound through ctypes:
   launched as :func:`band_tiling` plans (:func:`use_band` gives the
   rule);
 * ``splat(..., deterministic=True)`` launches K1-D, the deterministic
-  splat of ``lsi_tpu_torch/csrc/splat_sort.cu`` (its keys kernel, a
-  stable ``torch.sort`` of the keys, its segment-sum kernel), replacing
-  the sort branch of ``lsi_tpu/ops/splat.py:splat_bilinear``
-  (``method="sort"``): the same function as K1, bitwise repeatable;
+  splat of ``lsi_tpu_torch/csrc/splat_sort.cu`` (a counting sort of the
+  live corners by target, then each target's run summed in ascending
+  corner position; every step a kernel of that file, launched as
+  :func:`sort_plan` says), replacing the sort branch of
+  ``lsi_tpu/ops/splat.py:splat_bilinear`` (``method="sort"``): the same
+  function as K1, bitwise repeatable;
 * ``splat_vjp`` launches ``lsi_splat_vjp`` of
   ``lsi_tpu_torch/csrc/splat_bwd.cu``, replacing ``_splat_bwd_kernel``
   (K2) with the combine of ``splat_pallas_diff``'s backward (K3) fused in.
@@ -370,38 +372,85 @@ def splat(values: torch.Tensor, coords: torch.Tensor, weights, out_hw,
 
 
 def check_sort_sizes(values_shape, out_hw) -> None:
-    """Raise ValueError where K1-D's int32 keys cannot hold the splat: the
-    4 N Hs Ws corner positions must stay below 2^31 and the N out_h out_w
-    targets below INT_MAX (the dropped corners' key)."""
+    """Raise ValueError where K1-D's int32 positions and targets cannot
+    hold the splat: the 4 N Hs Ws corner positions must stay below 2^31
+    and the N out_h out_w targets below INT_MAX."""
     n, hs, ws, _ = (int(v) for v in values_shape)
     out_h, out_w = (int(v) for v in out_hw)
     if 4 * n * hs * ws >= 2**31 or n * out_h * out_w >= 2**31 - 1:
         raise ValueError(
-            f"the deterministic splat's int32 keys cannot hold {4 * n * hs * ws}"
-            f" corners into {n * out_h * out_w} target pixels")
+            f"the deterministic splat's int32 positions cannot hold "
+            f"{4 * n * hs * ws} corners into {n * out_h * out_w} target "
+            "pixels")
+
+
+#: The longest run of a target that one thread of K1-D's sum kernel sorts
+#: and adds (``kShortRun`` in splat_sort.cu); a longer run takes a warp.
+SORT_SHORT_RUN = 32
+#: Positions a warp of K1-D's long-run kernel sorts in shared memory
+#: (``kLongRun``); a longer run is sorted in place in global memory.
+SORT_LONG_RUN = 512
+#: Targets one block of K1-D's scan covers (``kScanTile``).
+SORT_SCAN_TILE = 16 * THREADS
+#: Blocks of the long-run kernel an SM holds: 8 warps of 16 KB of shared
+#: memory each.
+SORT_LONG_BLOCKS_PER_SM = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class SortPlan:
+    """K1-D's launch (``lsi_splat_sort``): ``targets`` pixels,
+    ``corners`` positions, ``tiles`` blocks of the scan; the long-run list
+    holds ``long_capacity`` targets (every run longer than
+    ``SORT_SHORT_RUN`` has a place), walked by ``long_blocks`` blocks (0:
+    no run can be long, no launch); ``scratch_ints`` int32 of scratch:
+    the cursors and the long-run count, the tile sums, the positions and
+    the list."""
+    targets: int
+    corners: int
+    tiles: int
+    long_capacity: int
+    long_blocks: int
+    scratch_ints: int
+
+
+def sort_plan(values_shape, out_hw) -> SortPlan:
+    """K1-D's plan for values (N, Hs, Ws, C) splatted into ``out_hw``
+    (sizes checked by :func:`check_sort_sizes`)."""
+    check_sort_sizes(values_shape, out_hw)
+    n, hs, ws, _ = (int(v) for v in values_shape)
+    out_h, out_w = (int(v) for v in out_hw)
+    targets = n * out_h * out_w
+    corners = 4 * n * hs * ws
+    tiles = -(-targets // SORT_SCAN_TILE)
+    long_capacity = min(targets, corners // (SORT_SHORT_RUN + 1))
+    long_blocks = min(SMS * SORT_LONG_BLOCKS_PER_SM,
+                      -(-long_capacity // (THREADS // 32)))
+    return SortPlan(targets=targets, corners=corners, tiles=tiles,
+                    long_capacity=long_capacity, long_blocks=long_blocks,
+                    scratch_ints=targets + 1 + tiles + corners
+                    + long_capacity)
 
 
 def _launch_sort(values, coords, weights, out_hw, snap, window):
-    """K1-D on CUDA tensors: the keys kernel, a stable sort of the keys,
-    the segment-sum kernel (``csrc/splat_sort.cu``); counts one launch."""
+    """K1-D on CUDA tensors (``csrc/splat_sort.cu``, one call of
+    ``lsi_splat_sort``: a memset of the counts, then the count, scan,
+    fill, sum and long-run kernels); counts one launch."""
     n, hs, ws, c = values.shape
     out_h, out_w = (int(v) for v in out_hw)
+    plan = sort_plan(values.shape, out_hw)
     coords = aligned(coords, 8)  # read as float2
     dev = values.device
-    keys = torch.empty(4 * n * hs * ws, dtype=torch.int32, device=dev)
-    build.launch("splat_sort", "lsi_splat_sort_keys", dev, coords.data_ptr(),
-                 keys.data_ptr(), n, hs, ws, out_h, out_w, int(snap),
-                 *window)
-    sorted_keys, order = torch.sort(keys, stable=True)
+    scratch = torch.empty(plan.scratch_ints, dtype=torch.int32, device=dev)
     # Every output pixel is written.
     accum = torch.empty((n, out_h, out_w, c), dtype=torch.float32,
                         device=dev)
     wsum = None if weights is None else torch.empty(
         (n, out_h, out_w, 1), dtype=torch.float32, device=dev)
-    build.launch("splat_sort", "lsi_splat_sort_sum", dev, values.data_ptr(),
-                 coords.data_ptr(), _ptr(weights), sorted_keys.data_ptr(),
-                 order.data_ptr(), accum.data_ptr(), _ptr(wsum), n, hs, ws,
-                 c, out_h, out_w, int(snap))
+    build.launch("splat_sort", "lsi_splat_sort", dev, values.data_ptr(),
+                 coords.data_ptr(), _ptr(weights), accum.data_ptr(),
+                 _ptr(wsum), scratch.data_ptr(), n, hs, ws, c, out_h, out_w,
+                 int(snap), *window, plan.long_capacity, plan.long_blocks)
     splat.sort_launches += 1
     return accum, wsum
 

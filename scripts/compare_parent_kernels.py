@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time this tree's K1 and gather kernels against another tree's (the
-parent commit's) on the same card, in the same process, on the same
+"""Time this tree's K1, K1-D and gather kernels against another tree's
+(the parent commit's) on the same card, in the same process, on the same
 inputs.
 
     git archive <parent> | tar -x -C _scratch/parent
@@ -29,6 +29,16 @@ chip_smoke.py). For each:
   each other at chip_smoke.py's splat tolerance; and K1 as the MPI step's
   image gradient, the parent with the unit weights and discarded wsum
   its ``GatherFn`` passed, this tree without them.
+
+* K1-D (``splat(..., deterministic=True)``): the parent's keys kernel,
+  stable ``torch.sort`` and sum kernel against this tree's
+  ``lsi_splat_sort`` on chip_smoke.py phase 30's three input sets (the b8
+  render's, the quality step's full LDI's, a height shard's) and a case
+  of long runs (an image's every source on one pixel, runs of hundreds):
+  outputs bitwise equal, times in turns, this tree's alone by kernel;
+* the libraries whose sources this tree must leave as they were
+  (``splat_fwd``, ``splat_bwd``): the same file name, which carries the
+  hash of the sources and flags.
 
 Also prints each kernel's registers, shared memory and spills from
 ``nvcc -Xptxas -v``, the atomic instructions in the K1 library's SASS
@@ -282,6 +292,29 @@ def record_windowed(dev):
     return out
 
 
+def long_run_case(dev):
+    """K1-D inputs with long runs: (2, 64, 192, 4) into (64, 192), image
+    0's every source on one pixel (one run of 12288, sorted in global
+    memory), image 1's first half on 16 pixels (runs of ~384, in shared
+    memory) and the rest +-40 px."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    n, hs, ws, hw = 2, 64, 192, (64, 192)
+    values = torch.rand((n, hs, ws, 4), generator=g, device=dev)
+    weights = torch.rand((n, hs, ws, 1), generator=g, device=dev)
+    x = torch.arange(ws, device=dev, dtype=torch.float32).expand(n, hs, ws)
+    y = torch.arange(hs, device=dev, dtype=torch.float32)[:, None].expand(
+        n, hs, ws)
+    coords = torch.stack([x + 80 * torch.rand((n, hs, ws), generator=g,
+                                                device=dev) - 40,
+                          y + torch.rand((n, hs, ws), generator=g,
+                                         device=dev)], -1)
+    coords[0] = torch.tensor([17.0, 9.0], device=dev)
+    hot = torch.randint(0, 16, (hs // 2, ws), generator=g, device=dev)
+    coords[1, :hs // 2, :, 0] = 10.5 + 8 * (hot % 4).float()
+    coords[1, :hs // 2, :, 1] = 20.5 + 8 * (hot // 4).float()
+    return values, coords.contiguous(), weights, hw, True, NO_WINDOW
+
+
 def record_main_path(dev):
     """K1's inputs in one b8 kitti_ldi2 render and K1's and the gather's
     in one b16 kitti_ldi3_b16 train step (chip_smoke.py's phases 5 and
@@ -382,6 +415,70 @@ def main() -> None:
                   g_v.data_ptr(), d.data_ptr(), n, hs, ws, c, hi, wi,
                   *NO_WINDOW[:2])
         return d
+
+    def parent_sort(values, coords, weights, out_hw, snap, window):
+        n, hs, ws, c = values.shape
+        keys = torch.empty(4 * n * hs * ws, dtype=torch.int32, device=dev)
+        pb.launch("splat_sort", "lsi_splat_sort_keys", dev,
+                  coords.data_ptr(), keys.data_ptr(), n, hs, ws, *out_hw,
+                  int(snap), *window)
+        sorted_keys, order = torch.sort(keys, stable=True)
+        acc = torch.empty((n, *out_hw, c), device=dev)
+        wsum = None if weights is None else torch.empty((n, *out_hw, 1),
+                                                        device=dev)
+        pb.launch("splat_sort", "lsi_splat_sort_sum", dev, values.data_ptr(),
+                  coords.data_ptr(), 0 if weights is None
+                  else weights.data_ptr(), sorted_keys.data_ptr(),
+                  order.data_ptr(), acc.data_ptr(),
+                  0 if wsum is None else wsum.data_ptr(), n, hs, ws, c,
+                  *out_hw, int(snap))
+        return acc, wsum
+
+    for name in ("splat_fwd", "splat_bwd"):
+        same = build.library_path(name).name == pb.library_path(name).name
+        result.setdefault("same_library", {})[name] = same
+        print(f"library {name}: {build.library_path(name).name}, the "
+              f"parent's {pb.library_path(name).name}: same sources "
+              f"{same}", flush=True)
+
+    sort_sets, _ = cs.sort_inputs(dev)
+    sort_sets.append(("a long-run case (an image on one pixel, runs of "
+                      "~384)", *long_run_case(dev)))
+    result["splat_sort"] = []
+    for label, *inputs in sort_sets:
+        v, c, w, hw, snap = inputs[:5]
+        window = inputs[5] if len(inputs) > 5 else NO_WINDOW
+
+        def mine():
+            return splat_cuda.splat(v, c, w, hw, snap=snap, max_dy=window[0],
+                                    fold_h=window[1], base_offset=window[2],
+                                    deterministic=True)
+
+        def theirs():
+            return parent_sort(v, c, w, hw, snap, window)
+
+        same = all(torch.equal(a, b) for a, b in zip(mine(), theirs()))
+        t, readings = in_turns(theirs, mine, 20)
+        alone, parts, others = cs.call_device_us(mine)
+        runs = cs.sort_runs(c, hw, snap, window)
+        row = dict(inputs=label, shape=list(v.shape), out_hw=list(hw),
+                   window=list(window), parent_us=1e3 * t["parent"],
+                   change_us=1e3 * t["change"], readings=readings,
+                   speedup=t["parent"] / t["change"], alone_us=alone,
+                   alone_parts=parts, other_kernels=others,
+                   longest_run=runs["longest"],
+                   long_share=runs["long_share"], bitwise_equal=same)
+        result["splat_sort"].append(row)
+        print(f"K1-D {label} {tuple(v.shape)} -> {tuple(hw)} window "
+              f"{tuple(window)}: change {row['change_us']:.1f} us against "
+              f"the parent's {row['parent_us']:.1f} ({row['speedup']:.2f}x) "
+              f"by events; change alone {alone:.1f} us ("
+              + ", ".join(f"{k} {x:.1f}" for k, x in parts.items())
+              + f"); longest run {runs['longest']}, "
+              f"{100 * runs['long_share']:.3f}% of targets on the long-run "
+              f"path; bitwise equal {same}", flush=True)
+    del sort_sets
+    torch.cuda.empty_cache()
 
     windowed = record_windowed(dev)
     for label, (v, c, w, hw, snap, window) in windowed.items():
@@ -543,8 +640,10 @@ def main() -> None:
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
-    bad = [k for k in ("splat_vjp", "gather_bwd_coords", "gather_fwd")
+    bad = [k for k in ("splat_sort", "splat_vjp", "gather_bwd_coords",
+                       "gather_fwd")
            for r in result[k] if not r["bitwise_equal"]]
+    bad += [k for k, same in result["same_library"].items() if not same]
     if bad:
         raise SystemExit(f"not bitwise equal to the parent: {bad}")
 

@@ -10,7 +10,9 @@ height-sharded render's splat) against the plain windowed splat; K1
 without weights (the gather's image gradient); the deterministic splat
 K1-D (``render.splat_method="sort"``) against the plain sort splat on the
 card and, bitwise, on the CPU, repeated and on a second stream, with its
-launch count, its int32 limit and the sort render.
+launch count, its int32 limit and the sort render, and with its runs at
+their edges (an image on one pixel, runs at the thread path's and the
+warp's limits, every corner dropped, corner 3 alone).
 
 Every test needs a CUDA card (marker ``gpu``) and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed; there,
@@ -1208,11 +1210,12 @@ def test_sort_kernel_counts_launches_and_refuses_int32_overflow(cuda):
     assert splat_cuda.splat_vjp.launches - vjp_before == 1
     with pytest.raises(ValueError):
         splat_cuda.check_sort_sizes((384, 1024, 1536, 4), (512, 1536))
-    keys = torch.empty(8, dtype=torch.int32, device=cuda)
-    with pytest.raises(RuntimeError, match="lsi_splat_sort_keys"):
-        build.launch("splat_sort", "lsi_splat_sort_keys", cuda,
-                     keys.data_ptr(), keys.data_ptr(), 384, 1024, 1536,
-                     512, 1536, 1, -1, 1, 0)
+    buf = torch.empty(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="lsi_splat_sort"):
+        build.launch("splat_sort", "lsi_splat_sort", cuda, buf.data_ptr(),
+                     buf.data_ptr(), buf.data_ptr(), buf.data_ptr(),
+                     buf.data_ptr(), buf.data_ptr(), 384, 1024, 1536, 4,
+                     512, 1536, 1, -1, 1, 0, 1, 1)
     assert splat_cuda.splat.sort_launches - before[3] == 1
 
 
@@ -1239,3 +1242,110 @@ def test_render_sort_on_cuda_matches_cpu(cuda):
         assert torch.equal(got[0][k], got[1][k])
         torch.testing.assert_close(got[0][k].cpu(), ref[k], rtol=1e-5,
                                    atol=1e-5)
+
+
+def sort_extreme_cases(c):
+    """K1-D's run lengths at their edges, as {name: ((values, coords,
+    weights), out_hw)}: every source of an image on one pixel (integer
+    coordinates: one run of all its pixels; half-integer: four such runs),
+    with runs that fit a warp's shared memory and runs that do not; runs
+    of 1 and just below, at and above SORT_SHORT_RUN and SORT_LONG_RUN,
+    their sources scattered over the image in a random order, beside an
+    image of ordinary runs; every corner dropped; targets hit only by
+    their sources' corner 3."""
+    rng = np.random.default_rng(300 + c)
+    cases = {}
+
+    def inputs(coords):
+        n, hs, ws, _ = coords.shape
+        values = rng.uniform(-1, 1, (n, hs, ws, c)).astype(np.float32)
+        weights = rng.uniform(0.05, 1.0, (n, hs, ws, 1)).astype(np.float32)
+        return values, np.ascontiguousarray(coords, np.float32), weights
+
+    for hs, ws in ((16, 24), (26, 77)):
+        for frac in (0.0, 0.5):
+            coords = np.empty((2, hs, ws, 2), np.float32)
+            coords[0] = (5.0 + frac, 3.0 + frac)
+            coords[1] = (ws - 2 + frac, hs - 2 + frac)
+            cases[f"one pixel {hs}x{ws} +{frac}"] = (inputs(coords),
+                                                     (hs, ws))
+    short, long_ = splat_cuda.SORT_SHORT_RUN, splat_cuda.SORT_LONG_RUN
+    lengths = [1, short - 1, short, short + 1, long_ - 1, long_, long_ + 1]
+    hs, ws, out_hw = 26, 77, (8, 40)
+    coords = np.full((2, hs * ws, 2), -10.0, np.float32)  # off the image
+    slots = rng.permutation(hs * ws)
+    first = 0
+    for t, length in enumerate(lengths):
+        coords[0, slots[first:first + length]] = (3 * t + 1, 1 + t % 6)
+        first += length
+    coords[1] = np.stack([rng.uniform(-2, out_hw[1] + 1, hs * ws),
+                          rng.uniform(-2, out_hw[0] + 1, hs * ws)], -1)
+    cases["runs at the thresholds"] = (
+        inputs(coords.reshape(2, hs, ws, 2)), out_hw)
+    dropped = rng.uniform(-4, 44, (2, hs, ws, 2)).astype(np.float32)
+    dropped[..., 0] += np.where(dropped[..., 0] < 20, -60.0, 60.0)
+    dropped[1, ::2, :, 1] = np.nan
+    cases["every corner dropped"] = (inputs(dropped), out_hw)
+    corner3 = np.full((2, hs, ws, 2), 1e6, np.float32)
+    corner3[0, 0, :40] = (out_hw[1] - 1.5, out_hw[0] - 1.5)   # a long run
+    corner3[0, 1, :5] = (10.5, 3.5)                           # a short one
+    corner3[1, 2, 7:30] = (20.5, 0.5)
+    corner3 = corner3.reshape(2, hs * ws, 2)[:, rng.permutation(hs * ws)]
+    cases["corner 3 only"] = (inputs(corner3.reshape(2, hs, ws, 2)), out_hw)
+    return cases
+
+
+def assert_sort_bitwise(got, values, coords, weights, out_hw, snap=True,
+                        window=(-1, 1, 0)):
+    """K1-D's outputs against the plain sort splat on the CPU, whose sums
+    run in K1-D's order: bitwise, but where a sum is denormal (K1-D
+    flushes it, H12)."""
+    ref = sort_plain(values, coords, weights, out_hw, snap, window, "cpu")
+    assert (got[1] is None) == (ref[1] is None)
+    for g, r in zip(got, ref):
+        if r is None:
+            continue
+        r = r.to(g.device)
+        tiny = (r != 0) & (r.abs() < torch.finfo(torch.float32).tiny)
+        assert torch.equal(g[~tiny], r[~tiny])
+        assert not g[tiny].abs().any()
+
+
+@pytest.mark.parametrize("case", ["one pixel 16x24 +0.0",
+                                  "one pixel 16x24 +0.5",
+                                  "one pixel 26x77 +0.0",
+                                  "one pixel 26x77 +0.5",
+                                  "runs at the thresholds",
+                                  "every corner dropped", "corner 3 only"])
+@pytest.mark.parametrize("c", [1, 4, 8])
+def test_sort_kernel_runs_at_their_edges(cuda, c, case):
+    """K1-D where runs are as long as an image, one position, just below,
+    at and above the thread path's and the warp's shared-memory limits,
+    absent, or made of corner 3 alone: with and without weights, bitwise
+    the plain sort splat on the CPU."""
+    arrays, out_hw = sort_extreme_cases(c)[case]
+    values, coords, weights = (torch.from_numpy(a).to(cuda) for a in arrays)
+    for w in (weights, None):
+        got = splat_cuda.splat(values, coords, w, out_hw, deterministic=True)
+        torch.cuda.synchronize()
+        assert_sort_bitwise(got, values, coords, w, out_hw)
+    if case == "every corner dropped":
+        assert not any(bool(g.abs().any()) for g in got if g is not None)
+
+
+def test_sort_kernel_long_runs_are_bitwise_repeatable_across_streams(cuda):
+    """Runs on both sides of both thresholds, launched on the default
+    stream and on a second stream: bitwise equal."""
+    arrays, out_hw = sort_extreme_cases(3)["runs at the thresholds"]
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    first = splat_cuda.splat(*args, out_hw, deterministic=True)
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        other = [splat_cuda.splat(*args, out_hw, deterministic=True)
+                 for _ in range(2)]
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    for out in other:
+        assert all(torch.equal(a, b) for a, b in zip(first, out))
+    assert_sort_bitwise(first, *args, out_hw)

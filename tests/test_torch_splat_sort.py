@@ -207,6 +207,74 @@ def test_sort_splat_refuses_what_int32_keys_cannot_hold():
                               method="segment")
 
 
+# ------------------------------------------------------ K1-D's launch plan
+
+# (values shape, out_hw): phase 30's b8 render, quality full LDI and
+# height shard, the highres b64 render, and a splat too small for any run
+# to be long.
+PLAN_SHAPES = [((8, 512, 768, 4), (256, 768)), ((8, 768, 768, 4), (256, 768)),
+               ((8, 128, 768, 4), (72, 768)),
+               ((64, 1024, 1536, 4), (512, 1536)), ((1, 2, 4, 3), (4, 4))]
+
+
+@pytest.mark.parametrize("shape,out_hw", PLAN_SHAPES)
+def test_sort_plan_sizes_its_scratch(shape, out_hw):
+    """K1-D's host-side plan: one scan tile a SORT_SCAN_TILE targets; a
+    place in the long-run list for every run that can be longer than
+    SORT_SHORT_RUN (at most corners // (SORT_SHORT_RUN + 1) of them, and
+    at most every target); a grid for the long-run kernel only where a
+    run can be long, no larger than the card holds at once; and the int32
+    scratch of the C entry point: the cursors and the long-run count, the
+    tile sums, the positions and the list."""
+    plan = splat_cuda.sort_plan(shape, out_hw)
+    n, hs, ws, _ = shape
+    targets, corners = n * out_hw[0] * out_hw[1], 4 * n * hs * ws
+    tile, short = splat_cuda.SORT_SCAN_TILE, splat_cuda.SORT_SHORT_RUN
+    assert (plan.targets, plan.corners) == (targets, corners)
+    assert (plan.tiles - 1) * tile < targets <= plan.tiles * tile
+    assert plan.long_capacity == min(targets, corners // (short + 1))
+    assert (plan.long_capacity + 1) * (short + 1) > corners or (
+        plan.long_capacity == targets)
+    assert (plan.long_blocks > 0) == (plan.long_capacity > 0)
+    assert plan.long_blocks <= (splat_cuda.SMS
+                                * splat_cuda.SORT_LONG_BLOCKS_PER_SM)
+    assert plan.scratch_ints == (targets + 1 + plan.tiles + corners
+                                 + plan.long_capacity)
+    # 4 bytes a corner and ~4 bytes a target: within 1.1x of the int32
+    # positions and targets themselves.
+    assert plan.scratch_ints <= 1.1 * (targets + corners) + 16
+    if shape == (1, 2, 4, 3):
+        assert (plan.long_capacity, plan.long_blocks) == (0, 0)
+
+
+def test_sort_plan_refuses_what_int32_positions_cannot_hold():
+    with pytest.raises(ValueError):
+        splat_cuda.sort_plan((384, 1024, 1536, 4), (512, 1536))
+    with pytest.raises(ValueError):
+        splat_cuda.sort_plan((1, 8, 8, 4), (2**16, 2**15))
+
+
+def test_sort_plan_constants_match_the_kernel_source():
+    """The plan's thresholds are the kernel's: kShortRun, kLongRun,
+    kScanTile and kThreads in csrc/splat_sort.cu."""
+    import re
+    from lsi_tpu_torch.kernels import build
+    src = (build.CSRC_DIR / "splat_sort.cu").read_text()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+
+    assert int(const("kThreads")) == splat_cuda.THREADS
+    assert int(const("kShortRun")) == splat_cuda.SORT_SHORT_RUN
+    assert int(const("kLongRun")) == splat_cuda.SORT_LONG_RUN
+    assert const("kScanTile") == "16 * kThreads"
+    assert splat_cuda.SORT_SCAN_TILE == 16 * splat_cuda.THREADS
+    # A long-run block keeps kLongRun int32 positions a warp (16 KB);
+    # SORT_LONG_BLOCKS_PER_SM of them fit an SM's 228 KB.
+    block_bytes = splat_cuda.THREADS // 32 * splat_cuda.SORT_LONG_RUN * 4
+    assert splat_cuda.SORT_LONG_BLOCKS_PER_SM * block_bytes <= 233_472
+
+
 # --------------------------------------------------------------- callers
 
 @pytest.mark.parametrize("use_pallas", ["auto", "on"])
